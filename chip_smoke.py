@@ -2,25 +2,45 @@
 """Smoke test of the PyTorch port (``zs_aac_tpu_torch``) on one CUDA card.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card; the
-kernels build with nvcc at first use). It fails, printing no result, where
-CUDA is not available. Phases, each of which must pass:
+kernels build with nvcc at first use, one nvcc per source, in parallel). It
+fails, printing no result, where CUDA is not available. Phases, each of
+which must pass:
 
-1. build every kernel of the serving path (kernel K1, ``csrc/decode_attn.cu``);
+1. build every kernel: K1 (``csrc/decode_attn.cu``), K2 (``csrc/logmel.cu``)
+   and K3/K5 (``csrc/window_attn.cu``), with each nvcc's time;
 2. hold K1 against its plain PyTorch version at the main path's shapes
    (B=256, H=12, d=64, T=77) and at edge shapes (B=1, d=16), fp32 and bf16;
 3. exact captions on learned weights: the port's ``predict_prompt`` on the
    committed tiny captioner (greedy and ``--q8``) reproduces the captions
    the JAX package recorded;
-4. the main path at full width: CLAP embedding -> MLP mapper 1024->3840->7680
-   -> GPT-2 124M (seeded random weights), B=256, Lp=10, 67 greedy steps,
-   bf16 activations, w8a8 weights + int8 KV cache, every attention through
-   K1 (launch count checked). Kernel and plain attention are teacher-forced
-   on one token stream and their logits compared; captions/s and K1's time
-   per call beside its byte bound are measured with CUDA events.
+4. the decode half at full width: CLAP embedding -> MLP mapper
+   1024->3840->7680 -> GPT-2 124M (seeded random weights), B=256, Lp=10, 67
+   greedy steps, bf16 activations, w8a8 weights + int8 KV cache, every
+   attention through K1 (launch count checked). Kernel and plain attention
+   are teacher-forced on one token stream and their logits compared;
+   captions/s and K1's time per call beside its byte bound are measured
+   with CUDA events, and a ``torch.profiler`` table of one decode printed;
+5. K2 (log-mel) against its plain version at B=64 x 10 s and at edge shapes
+   (B=1, odd T, T near n_fft, silence, a pure tone);
+6. K3 (whole Swin block) against its plain version at HTSAT's three stage
+   shapes, shifted and unshifted, fp32 and bf16, and at the stage-4 shape in
+   bf16 (the function of the TPU's streamed kernel K4); K5 (window
+   attention) at the stage-4 shape and a shifted stage-1 shape; a refused
+   launch (head dim 96) must raise;
+7. exact embeddings on learned weights: the port's ``load_ase_encoders`` +
+   ``extract_audio_text_bank`` on the committed tiny ASE (fp32) reproduce
+   the JAX-recorded audio and text embeddings, with K2, K3 and K5 launched;
+8. the encode half at full width (``configs/extract_data.yaml``'s geometry,
+   seeded random weights, bf16): B=64 ten-second waves -> K2 -> HTSAT
+   (K3 in stages 1-3, K5 + PyTorch MLP in stage 4) -> projection ->
+   [64, 1024] L2-normalized embeddings. Launch counts per encode are checked
+   (K2 1, K3 10, K5 2), the embeddings are compared row by row with the
+   all-plain path's (cosine), clips/s and BERT-base texts/s are measured
+   with CUDA events, each kernel's time per call is set beside its bound,
+   and a ``torch.profiler`` table of one encode is printed.
 
-Phase 4 ends with a ``torch.profiler`` table of one full-width decode's
-device time by kernel. The last lines are the ``kernels`` JSON line, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the ``kernels`` JSON line, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -43,6 +63,32 @@ K1_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 LOGIT_TOL = 0.25
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12         # fp32 outside the tensor cores
+H100_BF16_FLOPS = 989e12        # bf16 dense tensor-core peak
+# K2 vs plain, log-mel dB: both fp32 FFTs differing in summation order; on
+# noise every mel bin is far above the rounding floor (~1e-12 of the peak
+# power), where 1e-6 relative in power is 4e-6 dB. For a pure tone, bins
+# far under the peak hold only window leakage, where the FFTs' rounding
+# (~1e-7 of the peak amplitude) is a relative error of ~2e-7 * sqrt(peak /
+# power): 60-90 dB down it is held to 0.1 dB, and below that the bins need
+# only stay under peak - 80 dB.
+K2_TOL = 2e-3
+K2_TONE_MID_TOL = 0.1
+# K3/K5 vs plain: fp32 differs in summation order only (outputs ~8-30, fc
+# sums over up to 3072 hidden units): 2e-4 absolute. bf16 rounds at the same
+# points, where an fp32 accumulator's last bit can flip one bf16 rounding,
+# and a flipped residual input can flip the output's: two bf16 steps at the
+# largest output, 2**-6 * max|out_plain|.
+def window_tol(name, ref):
+    return 2e-4 if name == "float32" else 2.0 ** -6 * ref.float().abs().max().item()
+# Tiny-ASE fixture on the card (fp32, TF32 off) vs the JAX-recorded
+# embeddings (L2-normalized, entries ~0.2): summation order only.
+FIXTURE_TOL = 1e-4
+# Full-width bf16 encode, kernel path vs all-plain path: per-row cosine of
+# the [64, 1024] embeddings. The paths round to bf16 at different points
+# (the plain MLPs of stages 1-3 round each matmul output and then its bias
+# add), so 12 blocks of bf16 noise separate them; 0.99 is far above what
+# any indexing or layout error leaves (~0 for unrelated embeddings).
+COSINE_MIN = 0.99
 
 
 def check(cond, msg):
@@ -90,11 +136,15 @@ def k1_bound(B, H, d, index, act_bytes):
 def phase_build():
     from zs_aac_tpu_torch.utils import cuda_build
 
-    report = cuda_build.build(["decode_attn"])
-    for name, (seconds, nvcc_out) in report.items():
-        print(f"[build] csrc/{name}.cu: nvcc {seconds:.2f} s\n{nvcc_out.strip()}", flush=True)
-    if not report:
-        print("[build] csrc/decode_attn.cu: already built", flush=True)
+    names = ["decode_attn", "logmel", "window_attn"]
+    report = cuda_build.build(names)
+    for name in names:
+        if name in report:
+            seconds, nvcc_out = report[name]
+            print(f"[build] csrc/{name}.cu: nvcc {seconds:.2f} s\n{nvcc_out.strip()}",
+                  flush=True)
+        else:
+            print(f"[build] csrc/{name}.cu: already built", flush=True)
 
 
 def phase_k1_vs_plain():
@@ -279,6 +329,325 @@ def phase_full_width():
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
     return launches, k1
 
+# -- the encode half ----------------------------------------------------------
+
+# configs/extract_data.yaml's encoder settings (the card machine has no yaml
+# reader; tests/test_torch_extract.py holds this copy to the file).
+EXTRACT_CONFIG = {
+    "audio_args": {"sr": 32000, "n_fft": 1024, "hop_length": 320, "f_min": 50,
+                   "f_max": 14000, "n_mels": 64, "max_length": 10, "mono": True},
+    "audio_encoder_args": {"type": "transformer", "model": "HTSAT", "pretrained": False,
+                           "freeze": True},
+    "text_encoder_args": {"type": "bert-base-uncased", "freeze": True},
+    "embed_size": 1024,
+    "temp": 0.07,
+    "embed_regularization": True,
+    "training": {"spec_augmentation": False, "epochs": 1},
+    "compute_dtype": "bfloat16",
+}
+
+
+def k2_bound(B, T, cfg):
+    """Least time of one K2 call: the wave read and the log-mel written once
+    (bytes), against a real FFT's 2.5 n log2 n flops per frame plus the
+    power and the mel sums (fp32)."""
+    from zs_aac_tpu_torch.ops.logmel import mel_filterbank, num_frames
+
+    F = num_frames(T, cfg)
+    nbytes = 4 * B * T + 4 * B * F * cfg.n_mels
+    nnz = int((mel_filterbank(cfg.sr, cfg.n_fft, cfg.n_mels, cfg.f_min, cfg.f_max) != 0).sum())
+    n = cfg.n_fft
+    flops = B * F * (2.5 * n * math.log2(n) + 3 * (n // 2 + 1) + 2 * nnz)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def window_bound(B, H, C, heads, window, itemsize, mlp):
+    """Least time of one K3 (mlp) or K5 call, per-head formulation: qkv,
+    scores, p.v and projection (plus fc1/fc2 with hidden 4C) flops against
+    x read, out written, weights and bias read once."""
+    tokens, N = B * H * H, window * window
+    flops = tokens * (2 * C * 4 * C + 4 * N * C + (2 * C * 8 * C if mlp else 0))
+    weights = (4 * C * C + (8 * C * C if mlp else 0)) * itemsize
+    nwin = (H // window) ** 2
+    nbytes = 2 * tokens * C * itemsize + weights + nwin * heads * N * N * 4
+    peak = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k2_vs_plain():
+    import torch
+
+    from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel, log_mel_plain
+
+    cfg = LogMelConfig()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    for B, T in [(64, 320000), (1, 320000), (1, 16001), (3, 7777), (1, 1025), (1, 1000)]:
+        w = torch.randn(B, T, generator=g, device="cuda") * 0.1
+        err = (log_mel(w, cfg) - log_mel_plain(w, cfg)).abs().max().item()
+        print(f"[k2] noise B={B} T={T}: max|dB - dB_plain| = {err:.3g} (tol {K2_TOL})",
+              flush=True)
+        check(err <= K2_TOL, f"K2 disagrees with its plain version ({err} dB)")
+        if B == 64:
+            worst = err
+    silence = torch.zeros(2, 32000, device="cuda")
+    check(bool((log_mel(silence, cfg) == -100.0).all()), "K2: silence is not -100 dB everywhere")
+    t = torch.arange(64000, device="cuda") / 32000.0
+    for freq in (440.0, 1000.0, 7919.0):
+        tone = (0.5 * torch.sin(2 * math.pi * freq * t))[None]
+        got, want = log_mel(tone, cfg), log_mel_plain(tone, cfg)
+        peak = want.max()
+        loud = want > peak - 60.0
+        mid = (want <= peak - 60.0) & (want > peak - 90.0)
+        quiet = want <= peak - 90.0
+        err_loud = (got - want)[loud].abs().max().item()
+        err_mid = (got - want)[mid].abs().max().item() if mid.any() else 0.0
+        check(err_loud <= K2_TOL and err_mid <= K2_TONE_MID_TOL,
+              f"K2 tone {freq} Hz: {err_loud} dB (loud bins), {err_mid} dB (-60..-90 dB)")
+        check(bool((got[quiet] < peak - 80).all()), f"K2 tone {freq} Hz: leakage bins too loud")
+    print("[k2] silence = -100 dB everywhere; pure tones 440/1000/7919 Hz within "
+          f"{K2_TOL} dB of the plain version within 60 dB of the peak, {K2_TONE_MID_TOL} dB "
+          "60-90 dB down", flush=True)
+    return worst
+
+
+def _window_case(B, H, C, heads, window, dtype, g, hidden=None):
+    import torch
+
+    hidden = hidden or 4 * C
+    nH, N = H // window, window * window
+    f = lambda *shape: torch.randn(*shape, generator=g, device="cuda") * 0.05
+    x = (f(B, H, H, C) * 20).to(dtype)
+    w = [f(C) + 1, f(C), f(C, 3 * C), f(3 * C), f(C, C), f(C), f(C) + 1, f(C),
+         f(C, hidden), f(hidden), f(hidden, C), f(C)]
+    bias = torch.randn(nH, nH, heads, N, N, generator=g, device="cuda")
+    return x, [t.to(dtype) for t in w], bias
+
+
+STAGES = [(64, 96, 4), (32, 192, 8), (16, 384, 16)]   # (H=W, C, heads) at B=64, window 8
+
+
+def phase_window_vs_plain():
+    import torch
+
+    from zs_aac_tpu_torch.ops.window_attn import (fused_swin_block, fused_window_attention,
+                                                  swin_block_plain, window_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"k3": 0.0, "k4": 0.0, "k5": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for H, C, heads in STAGES:
+            for shift in (0, 4):
+                x, w, bias = _window_case(64, H, C, heads, 8, dtype, g)
+                ref = swin_block_plain(x, *w, bias, 8, heads, shift, 1e-6)
+                err = (fused_swin_block(x, *w, bias, 8, heads, shift, 1e-6).float()
+                       - ref.float()).abs().max().item()
+                tol = window_tol(name, ref)
+                print(f"[k3] {name} B=64 {H}x{H}x{C} heads={heads} shift={shift}: "
+                      f"max|out-out_plain| = {err:.3g} (tol {tol:.3g})", flush=True)
+                check(err <= tol, f"K3 disagrees with its plain version ({err})")
+                if dtype == torch.bfloat16:
+                    worst["k3"] = max(worst["k3"], err)
+    # K4's function: stage 4 (8x8x768, 32 heads, hidden 3072) through K3, bf16
+    x, w, bias = _window_case(64, 8, 768, 32, 8, torch.bfloat16, g)
+    ref = swin_block_plain(x, *w, bias, 8, 32, 0, 1e-6)
+    err = (fused_swin_block(x, *w, bias, 8, 32, 0, 1e-6).float() - ref.float()).abs().max().item()
+    tol = window_tol("bfloat16", ref)
+    print(f"[k4] bf16 B=64 8x8x768 heads=32 hidden=3072 through K3: max|out-out_plain| = "
+          f"{err:.3g} (tol {tol:.3g})", flush=True)
+    check(err <= tol, f"K3 at K4's shape disagrees ({err})")
+    worst["k4"] = err
+    for dtype, (H, C, heads), shift in ((torch.bfloat16, (8, 768, 32), 0),
+                                        (torch.float32, (8, 384, 16), 0),
+                                        (torch.bfloat16, (64, 96, 4), 4),
+                                        (torch.float32, (64, 96, 4), 4)):
+        name = str(dtype).split(".")[1]
+        x, w, bias = _window_case(64, H, C, heads, 8, dtype, g)
+        ref = window_attention_plain(x, *w[2:6], bias, 8, heads, shift)
+        err = (fused_window_attention(x, *w[2:6], bias, 8, heads, shift).float()
+               - ref.float()).abs().max().item()
+        tol = window_tol(name, ref)
+        print(f"[k5] {name} B=64 {H}x{H}x{C} heads={heads} shift={shift}: "
+              f"max|out-out_plain| = {err:.3g} (tol {tol:.3g})", flush=True)
+        check(err <= tol, f"K5 disagrees with its plain version ({err})")
+        if dtype == torch.bfloat16 and H == 8:
+            worst["k5"] = err
+    x, w, bias = _window_case(2, 8, 192, 2, 8, torch.float32, g)   # head dim 96
+    try:
+        fused_window_attention(x, *w[2:6], bias, 8, 2, 0)
+    except ValueError as e:
+        print(f"[k5] refused as it should be: {e}", flush=True)
+    else:
+        check(False, "K5 took a head dim of 96")
+    return worst
+
+
+def phase_fixture_bank():
+    import torch
+
+    from zs_aac_tpu_torch.ops.logmel import log_mel
+    from zs_aac_tpu_torch.ops.window_attn import fused_swin_block, fused_window_attention
+    from zs_aac_tpu_torch.pipeline.extract import extract_audio_text_bank, load_ase_encoders
+    from zs_aac_tpu_torch.testdata import stage_tiny_ase
+
+    with tempfile.TemporaryDirectory() as tmp:
+        staged = stage_tiny_ase(tmp)
+        ea, et = load_ase_encoders(staged["config"], staged["ckpt"], device="cuda")
+        for fn in (log_mel, fused_swin_block, fused_window_attention):
+            fn.launches = 0
+        got = extract_audio_text_bank(ea, et, staged["data_path"], True,
+                                      staged["config"]["audio_args"], batch_size=4)
+        launches = [log_mel.launches, fused_swin_block.launches, fused_window_attention.launches]
+    want = staged["expected"]
+    check(len(got) == len(want), f"fixture: {len(got)} records, {len(want)} recorded")
+    err = 0.0
+    for gr, wr in zip(got, want):
+        check(gr["audio_id"] == wr["audio_id"] and gr["caption"] == wr["caption"],
+              "fixture: record order or captions differ")
+        for key in ("audio_embedding", "text_embedding"):
+            err = max(err, float(abs(torch.as_tensor(gr[key]).float()
+                                     - torch.tensor(wr[key])).max()))
+    print(f"[fixture] tiny ASE bank on cuda: {len(got)} records, max|emb - emb_JAX| = "
+          f"{err:.3g} (tol {FIXTURE_TOL}); launches K2/K3/K5 = {launches}", flush=True)
+    check(err <= FIXTURE_TOL, "fixture embeddings differ from the JAX-recorded ones")
+    check(all(n > 0 for n in launches), f"fixture path missed a kernel: {launches}")
+
+
+def phase_encode_full_width():
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zs_aac_tpu_torch.models.ase import ASE, init_ase
+    from zs_aac_tpu_torch.models.convert import cast_floating
+    from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel, log_mel_plain
+    from zs_aac_tpu_torch.ops.window_attn import (build_window_bias, fused_swin_block,
+                                                  fused_window_attention, swin_block_plain,
+                                                  window_attention_plain)
+    from zs_aac_tpu_torch.pipeline.extract import build_ase_from_config
+    from zs_aac_tpu_torch.train.contrastive import make_encode_fns
+
+    B, T = 64, 10 * 32000
+    _, cfg = build_ase_from_config(EXTRACT_CONFIG)
+    mel_cfg = LogMelConfig.from_dict(EXTRACT_CONFIG["audio_args"])
+    with torch.no_grad():
+        variables = cast_floating(init_ase(cfg, seed=0, device="cuda"), torch.bfloat16)
+    n_stages = len(ASE(cfg).audio_enc.depths)
+    kernel_ase = ASE(dataclasses.replace(cfg, fused_attn=True,
+                                         fused_block=tuple(range(n_stages - 1))))
+    plain_ase = ASE(dataclasses.replace(cfg, fused_attn=False, fused_block=False))
+    enc_a, enc_t = make_encode_fns(kernel_ase, mel_cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    t = torch.arange(T, device="cuda") / 32000.0
+    freqs = torch.rand(B, 1, generator=g, device="cuda") * 4000 + 100
+    waves = (0.3 * torch.sin(2 * math.pi * freqs * t)
+             + 0.05 * torch.randn(B, T, generator=g, device="cuda"))
+
+    enc_a(variables, waves)                     # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    kernels = {"K2": log_mel, "K3": fused_swin_block, "K5": fused_window_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+    emb = enc_a(variables, waves)               # the main path, counted
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    print(f"[encode] B={B} 10 s clips, bf16, seeded weights: embeddings "
+          f"{tuple(emb.shape)} {emb.dtype}; launches per encode {launches} "
+          "(expected K2 1, K3 10, K5 2)", flush=True)
+    check(launches == {"K2": 1, "K3": 10, "K5": 2}, "encode launch counts off the main path's")
+    check(tuple(emb.shape) == (B, 1024) and bool(torch.isfinite(emb.float()).all()),
+          "encode output is not a finite [64, 1024]")
+    norms = emb.float().norm(dim=-1)
+    check(bool(((norms - 1).abs() < 1e-2).all()), "embeddings are not L2-normalized")
+    with torch.no_grad():
+        emb_plain = plain_ase.encode_audio(variables, log_mel_plain(waves, mel_cfg)[:, 0])
+    cos = torch.nn.functional.cosine_similarity(emb.float(), emb_plain.float(), dim=-1)
+    print(f"[encode] kernel path vs all-plain path: per-row cosine min {cos.min().item():.5f} "
+          f"mean {cos.mean().item():.5f} (threshold {COSINE_MIN}); max|diff| "
+          f"{(emb.float() - emb_plain.float()).abs().max().item():.3g}", flush=True)
+    check(cos.min().item() >= COSINE_MIN, "kernel-path embeddings diverge from the plain path")
+
+    enc_ms = statistics.median(timed_ms(lambda r: enc_a(variables, waves), 1) for _ in range(3))
+    with torch.no_grad():
+        plain_ms = timed_ms(lambda r: plain_ase.encode_audio(
+            variables, log_mel_plain(waves, mel_cfg)[:, 0]), 2)
+    print(f"[encode] wave -> embedding at B={B}: {enc_ms:.2f} ms per batch -> "
+          f"{B / enc_ms * 1e3:.1f} clips/s (kernel path; waves already on the card); "
+          f"all-plain path {plain_ms:.2f} ms -> {B / plain_ms * 1e3:.1f} clips/s", flush=True)
+
+    L = 30
+    ids = torch.randint(1000, 30000, (B, L), generator=g, device="cuda")
+    mask = torch.ones(B, L, dtype=torch.int64, device="cuda")
+    lens = torch.randint(6, L + 1, (B,), generator=g, device="cuda")
+    mask[torch.arange(L, device="cuda")[None] >= lens[:, None]] = 0
+    ids[:, 0] = 101
+    temb = enc_t(variables, ids, mask)
+    check(tuple(temb.shape) == (B, 1024) and bool(torch.isfinite(temb.float()).all()),
+          "text embeddings are not a finite [64, 1024]")
+    text_ms = statistics.median(timed_ms(lambda r: enc_t(variables, ids, mask), 3)
+                                for _ in range(3))
+    print(f"[encode] BERT-base encode_text at B={B}, L={L}, bf16: {text_ms:.2f} ms per batch "
+          f"-> {B / text_ms * 1e3:.1f} texts/s", flush=True)
+
+    # each kernel alone at the encode's shapes, beside its plain version and bound
+    stats = {}
+    k2_ms = timed_ms(lambda r: log_mel(waves, mel_cfg), 10)
+    k2_plain = timed_ms(lambda r: log_mel_plain(waves, mel_cfg), 5)
+    k2_b, k2_by = k2_bound(B, T, mel_cfg)
+    stats["K2"] = {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_b, "bound_by": k2_by}
+    print(f"[encode] K2 B={B} T={T}: {k2_ms * 1e3:.1f} us (bound {k2_b * 1e3:.1f} us by {k2_by}, "
+          f"{k2_b / k2_ms:.1%}), plain {k2_plain * 1e3:.1f} us", flush=True)
+    gw = torch.Generator(device="cuda").manual_seed(7)
+    per_call = {"K3": [], "K5": []}
+    for (H, C, heads), n_calls in zip(STAGES + [(8, 768, 32)], (2, 2, 6, 2)):
+        x, w, _ = _window_case(B, H, C, heads, 8, torch.bfloat16, gw)
+        rpb = torch.randn(heads, 64, 64, generator=gw, device="cuda")
+        bias = build_window_bias(rpb, None, H // 8, H // 8)
+        mlp = H > 8
+        if mlp:
+            fn = lambda r: fused_swin_block(x, *w, bias, 8, heads, 0, 1e-6)
+            pf = lambda r: swin_block_plain(x, *w, bias, 8, heads, 0, 1e-6)
+        else:
+            fn = lambda r: fused_window_attention(x, *w[2:6], bias, 8, heads, 0)
+            pf = lambda r: window_attention_plain(x, *w[2:6], bias, 8, heads, 0)
+        fn(0)
+        ms, pms = timed_ms(fn, 5), timed_ms(pf, 3)
+        bms, by = window_bound(B, H, C, heads, 8, 2, mlp)
+        key = "K3" if mlp else "K5"
+        per_call[key] += [(ms, pms, bms, by)] * n_calls
+        print(f"[encode] {key} B={B} {H}x{H}x{C} heads={heads} bf16: {ms * 1e3:.1f} us per call "
+              f"x {n_calls} per encode (bound {bms * 1e3:.1f} us by {by}, {bms / ms:.1%}), "
+              f"plain {pms * 1e3:.1f} us", flush=True)
+        if not mlp:   # K4's function: the same stage-4 block through K3
+            k4 = lambda r: fused_swin_block(x, *w, bias, 8, heads, 0, 1e-6)
+            k4_ms = timed_ms(k4, 5)
+            k4_pms = timed_ms(lambda r: swin_block_plain(x, *w, bias, 8, heads, 0, 1e-6), 3)
+            k4_b, k4_by = window_bound(B, H, C, heads, 8, 2, True)
+            stats["K4"] = {"ms": k4_ms, "plain_ms": k4_pms, "bound_ms": k4_b, "bound_by": k4_by}
+            print(f"[encode] K4's function (stage-4 whole block through K3) B={B}: "
+                  f"{k4_ms * 1e3:.1f} us (bound {k4_b * 1e3:.1f} us by {k4_by}, "
+                  f"{k4_b / k4_ms:.1%}), plain {k4_pms * 1e3:.1f} us", flush=True)
+    for key, rows in per_call.items():
+        stats[key] = {"ms": statistics.mean(r[0] for r in rows),
+                      "plain_ms": statistics.mean(r[1] for r in rows),
+                      "bound_ms": statistics.mean(r[2] for r in rows), "bound_by": rows[0][3]}
+        total = sum(r[0] for r in rows)
+        print(f"[encode] {key} share of one encode: {len(rows)} calls, {total:.2f} ms of "
+              f"{enc_ms:.2f} ms", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        enc_a(variables, waves)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    print(f"[profile] one encode under torch.profiler: wall {pwall * 1e3:.2f} ms", flush=True)
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
+    return launches, stats
+
 
 def main():
     import torch
@@ -296,6 +665,10 @@ def main():
     worst = phase_k1_vs_plain()
     phase_fixture_captions()
     launches, k1 = phase_full_width()
+    k2_err = phase_k2_vs_plain()
+    window_err = phase_window_vs_plain()
+    phase_fixture_bank()
+    enc_launches, enc = phase_encode_full_width()
 
     kernels = [{
         "name": "decode_attn_q8",
@@ -310,6 +683,19 @@ def main():
         "bound_by": "bytes",
         "library_ms": None,
     }]
+    for key, name, source, replaces, err in (
+            ("K2", "log_mel", "zs_aac_tpu_torch/csrc/logmel.cu",
+             "zs_aac_tpu/ops/logmel.py:192", k2_err),
+            ("K3", "fused_swin_block", "zs_aac_tpu_torch/csrc/window_attn.cu",
+             "zs_aac_tpu/ops/window_attn.py:253", window_err["k3"]),
+            ("K4", "fused_swin_block (stage-4 shape, K4's function)",
+             "zs_aac_tpu_torch/csrc/window_attn.cu", "zs_aac_tpu/ops/window_attn.py:360",
+             window_err["k4"]),
+            ("K5", "fused_window_attention", "zs_aac_tpu_torch/csrc/window_attn.cu",
+             "zs_aac_tpu/ops/window_attn.py:77", window_err["k5"])):
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": enc_launches.get(key, 0), "max_abs_err": err,
+                        **enc[key], "library_ms": None})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

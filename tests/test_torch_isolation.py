@@ -13,8 +13,9 @@ import pytest
 import torch
 
 import zs_aac_tpu_torch
-from zs_aac_tpu_torch.models import caption, convert, gpt2, mapper
-from zs_aac_tpu_torch.train import predict_prompt
+from zs_aac_tpu_torch.models import ase, bert, caption, convert, gpt2, htsat, mapper
+from zs_aac_tpu_torch.pipeline import extract
+from zs_aac_tpu_torch.train import contrastive, predict_prompt
 from zs_aac_tpu_torch.utils import device as device_mod
 
 PKG = Path(zs_aac_tpu_torch.__file__).parent
@@ -27,7 +28,8 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "zs_aac_tpu_torch.ops.decode_attn" in mods and len(mods) >= 20
+    kernels = {"zs_aac_tpu_torch.ops." + m for m in ("decode_attn", "logmel", "window_attn")}
+    assert kernels <= set(mods) and len(mods) >= 36
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
@@ -45,6 +47,8 @@ def test_sources_name_no_jax_package():
     assert not hits, hits
 
 
+_HTSAT_ASE = ase.ASEConfig(audio_encoder="htsat")
+
 # name -> (function, a call of it that takes the default device)
 ENTRY_POINTS = {
     "from_jax_params": (convert.from_jax_params, lambda: convert.from_jax_params({})),
@@ -58,6 +62,16 @@ ENTRY_POINTS = {
     "init_caption_model": (caption.init_caption_model,
                            lambda: caption.init_caption_model(caption.CaptionConfig())),
     "resolve_device": (device_mod.resolve_device, lambda: device_mod.resolve_device()),
+    "init_ase": (ase.init_ase, lambda: ase.init_ase(_HTSAT_ASE)),
+    "from_jax_params(ase)": (convert.from_jax_params,
+                             lambda: convert.from_jax_params({"params": {}})),
+    "convert_ase": (convert.convert_ase, lambda: convert.convert_ase({}, _HTSAT_ASE)),
+    "convert_htsat": (convert.convert_htsat, lambda: convert.convert_htsat({})),
+    "convert_bert": (bert.convert_bert, lambda: bert.convert_bert({}, bert.BertConfig())),
+    "HTSAT.init": (htsat.HTSAT.init, lambda: htsat.HTSAT().init()),
+    "load_ase_encoders": (extract.load_ase_encoders, lambda: extract.load_ase_encoders({})),
+    "make_encode_fns": (contrastive.make_encode_fns,
+                        lambda: contrastive.make_encode_fns(ase.ASE(_HTSAT_ASE))),
 }
 
 
@@ -84,3 +98,11 @@ def test_predict_later_slices_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match="later slice"):
         predict_prompt.main(["--test_dir", str(tmp_path), "--data", "none.pkl",
                              "--device", "cpu", flag])
+
+
+def test_extract_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    args = extract.build_parser().parse_args(["--out_path", "x"])
+    assert args.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        extract.main(["--out_path", str(tmp_path / "bank.pkl"), "--config", "none.yaml"])

@@ -1,4 +1,4 @@
-"""Embedding banks: the reference's two pickle formats, read.
+"""Embedding banks: the reference's two pickle formats, read and written.
 
 A bank is either one pickled list of record dicts, or records appended with
 ``pickle.dump`` and read until ``EOFError`` (streamed). Record keys:
@@ -14,7 +14,7 @@ from typing import Iterator, List
 
 import numpy as np
 
-__all__ = ["iter_bank", "read_bank", "read_label_bank"]
+__all__ = ["iter_bank", "read_bank", "read_label_bank", "write_bank_list"]
 
 
 def iter_bank(path: str) -> Iterator[dict]:
@@ -33,6 +33,12 @@ def iter_bank(path: str) -> Iterator[dict]:
 
 def read_bank(path: str) -> List[dict]:
     return list(iter_bank(path))
+
+
+def write_bank_list(path: str, records: List[dict]) -> None:
+    """Single pickled list (the reference embeddings_generator's format)."""
+    with open(path, "wb") as f:
+        pickle.dump(records, f)
 
 
 def read_label_bank(path: str):
