@@ -6,8 +6,9 @@ kernels build with nvcc at first use, one nvcc per source, in parallel). It
 fails, printing no result, where CUDA is not available. Phases, each of
 which must pass:
 
-1. build every kernel: K1 (``csrc/decode_attn.cu``), K2 (``csrc/logmel.cu``)
-   and K3/K5 (``csrc/window_attn.cu``), with each nvcc's time;
+1. build every kernel: K1 (``csrc/decode_attn.cu``), K2 (``csrc/logmel.cu``),
+   K3/K5/K7 (``csrc/window_attn.cu``) and K6/K8/K9 (``csrc/swin_train.cu``),
+   with each nvcc's time;
 2. hold K1 against its plain PyTorch version at the main path's shapes
    (B=256, H=12, d=64, T=77) and at edge shapes (B=1, d=16), fp32 and bf16;
 3. exact captions on learned weights: the port's ``predict_prompt`` on the
@@ -37,7 +38,28 @@ which must pass:
    (K2 1, K3 10, K5 2), the embeddings are compared row by row with the
    all-plain path's (cosine), clips/s and BERT-base texts/s are measured
    with CUDA events, each kernel's time per call is set beside its bound,
-   and a ``torch.profiler`` table of one encode is printed.
+   and a ``torch.profiler`` table of one encode is printed;
+9. the train kernels against their plain versions at B=64: K7 (train
+   forward), K8 (MLP backward) and K9 (attention + LN1 backward) at the
+   stage 1-3 shapes, shift 0 and 4, bf16 and fp32; K6 (window-attention
+   backward) at the stage-4 shape in bf16 and a shifted stage-1 shape;
+   drop-path scales holding 0 and 1/keep (a dropped row passes its
+   cotangent through exactly);
+10. gradients through K3 and K5 (their wrappers are autograd Functions)
+    equal the plain versions' autograd;
+11. the committed tiny-ASE train run (3 Adam steps, fp32) on the card's
+    dispatch reproduces the JAX-recorded losses, parameter checksums and
+    batch statistics, with K2 1 and K5/K6/K7/K8/K9 2 launches per step;
+12. the drivers: ``pretrain.run`` for 2 steps and a ``finetune.run`` warm
+    start on a toy corpus;
+13. a full-width training step (extract_data.yaml's HTSAT + BERT-base,
+    embed 1024, bf16 over fp32 parameters, B=64 ten-second waves, Adam lr
+    5e-5 cosine, clip 2, spec augmentation and drop path 0.1): one warm-up
+    and 5 timed steps on one batch, launch counts per step checked (K2 1,
+    K7/K8/K9 10 each, K5/K6 2 each), the loss on the batch with fixed random
+    draws lower after the steps, per-leaf gradient cosine >= 0.99 and norm
+    ratio within 5% of 1 against the all-plain path, samples/s, peak memory, each train kernel's time per
+    call beside its bound and a ``torch.profiler`` table of one step.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -136,7 +158,7 @@ def k1_bound(B, H, d, index, act_bytes):
 def phase_build():
     from zs_aac_tpu_torch.utils import cuda_build
 
-    names = ["decode_attn", "logmel", "window_attn"]
+    names = ["decode_attn", "logmel", "window_attn", "swin_train"]
     report = cuda_build.build(names)
     for name in names:
         if name in report:
@@ -528,7 +550,7 @@ def phase_encode_full_width():
     from zs_aac_tpu_torch.ops.window_attn import (build_window_bias, fused_swin_block,
                                                   fused_window_attention, swin_block_plain,
                                                   window_attention_plain)
-    from zs_aac_tpu_torch.pipeline.extract import build_ase_from_config
+    from zs_aac_tpu_torch.train.pretrain import build_ase_from_config
     from zs_aac_tpu_torch.train.contrastive import make_encode_fns
 
     B, T = 64, 10 * 32000
@@ -649,6 +671,540 @@ def phase_encode_full_width():
     return launches, stats
 
 
+# -- the training half: HTSAT-BERT contrastive training ----------------------------
+
+# configs/pretrain.yaml's optimizer and training switches on the encoder
+# geometry of configs/extract_data.yaml (HTSAT takes at most 1024 frames, so
+# clips are 10 s; the yaml's max_length of 30 would not fit), bf16 compute.
+TRAIN_CONFIG = {
+    **EXTRACT_CONFIG,
+    "training": {"spec_augmentation": True, "epochs": 15, "clip_grad": 2, "warmup_epochs": 2},
+    "optim_args": {"lr": 5e-5, "scheduler": "cosine", "optimizer_name": "adam",
+                   "betas": [0.9, 0.999], "eps": 1e-8, "momentum": 0.9, "weight_decay": 0.0},
+    "audio_encoder_args": {"type": "transformer", "model": "HTSAT", "pretrained": False,
+                           "freeze": False},
+    "text_encoder_args": {"type": "bert-base-uncased", "freeze": False},
+}
+KEEP = 0.9   # drop-path keep probability of the deepest block (rate 0.1)
+# The tiny-ASE train fixture on the card (fp32, TF32 off) against the
+# JAX-recorded run: summation order only, which Adam's per-element
+# normalization carries into every update (~1e-5 relative on the CPU).
+TRAIN_FIXTURE_TOL = {"loss": 1e-4, "params": 1e-4, "batch_stats": 1e-5}
+# Full-width bf16 train step, kernel path vs all-plain path: per-leaf cosine
+# of the gradients. The paths round to bf16 at different points (the plain
+# MLPs round each matmul output and then its bias add), so the gradients
+# carry different bf16 noise; 0.99 is far above what a wrong index, mask or
+# shift leaves (~0 for unrelated gradients).
+GRAD_COSINE_MIN = 0.99
+# A cosine cannot see a leaf's gradient off by a constant factor (a keep
+# scale applied twice, a partial sum added twice), so each leaf's norm ratio
+# |g_kernel| / |g_plain| is held within 5% of 1 as well: rounding noise of
+# many elements is nearly orthogonal to the gradient and moves the ratio by
+# about half its squared relative size (< 2% at cosine >= 0.99), and the
+# smallest such fault, a keep scale of 1/0.9 applied twice, moves it by 11%.
+# A one-element leaf (the temperature) has no direction: its cosine is its
+# sign and its norm ratio its whole relative error, which for the
+# temperature, a difference of near-equal sums over the batch, is rounding
+# (tens of percent in bf16); it is held by its sign only.
+GRAD_NORM_TOL = 0.05
+# Leaves whose bf16 plain gradient is mostly rounding residue (relative
+# distance from the plain path evaluated in fp32 above this) are left out of
+# both gates: BERT's key biases, whose exact gradient is 0 (a softmax does
+# not see a constant added to every score of a query), and its deepest
+# query/key weights, whose gradient through near-uniform attention with
+# seeded weights is as small.
+GRAD_NOISE_MAX = 0.5
+
+
+def train_tol(want, want32=None):
+    """Kernel vs plain, per output relative to its largest entry. fp32:
+    summation order only, 1e-4 of the largest entry. bf16: an fp32
+    accumulator summed in another order can flip one bf16 rounding of an
+    intermediate (q/k/v, do, ds, dh1, ...), and a flipped score moves a
+    softmax row; the kernel is held within twice the plain bf16 version's own
+    distance from the plain version evaluated in fp32 on the same inputs
+    (``want32``: the size of bf16 rounding noise for this output), plus
+    2**-8 of the largest entry."""
+    scale = want.float().abs().max().item()
+    if want32 is None:
+        return 1e-4 * scale + 1e-7
+    return 2 * (want.float() - want32.float()).abs().max().item() + 2.0 ** -8 * scale
+
+
+def _f32(tensors):
+    return [t.float() if t.is_floating_point() else t for t in tensors]
+
+
+def _train_case(B, H, C, heads, dtype, g):
+    import torch
+
+    x, w, bias = _window_case(B, H, C, heads, 8, dtype, g)
+    gout = torch.randn(B, H, H, C, generator=g, device="cuda").to(dtype)
+    m1 = torch.tensor([1 / KEEP, 0.0], device="cuda").repeat(B // 2)
+    return x, w, bias, gout, m1, m1.flip(0).contiguous()
+
+
+def _compare(tag, names, outs, wants, refs):
+    """Check each kernel output against the plain one; returns the largest
+    absolute difference."""
+    worst = 0.0
+    for name, got, want, ref in zip(names, outs, wants, refs):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = train_tol(want, ref)
+        check(err <= tol, f"{tag} {name}: {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def train_bound(kind, B, H, C, heads, itemsize):
+    """Least time of one K6/K7/K8/K9 call: each input read once and each
+    output written once (activations in the working dtype, weights too,
+    bias and gradients fp32), against the per-head flops per token: K7 24C^2
+    + 4NC (K3's), K8 40C^2 (fc1 recomputed, dgelu, dfc1/dfc2 weights, dLN2
+    input), K9 and K6 22C^2 + 12NC (qkv/proj recomputed, do, dq/dk/dv, dx,
+    dWqkv, dWproj)."""
+    tokens, N = B * H * H, 64
+    nwin_bias = (H // 8) ** 2 * heads * N * N * 4
+    act = tokens * C * itemsize
+    if kind == "K7":
+        flops = 24 * C * C + 4 * N * C
+        nbytes = 3 * act + 12 * C * C * itemsize + nwin_bias
+    elif kind == "K8":
+        flops = 40 * C * C
+        nbytes = 3 * act + (8 * C * C + 7 * C) * itemsize + (8 * C * C + 7 * C) * 4
+    else:
+        flops = 22 * C * C + 12 * N * C
+        nbytes = 3 * act + 4 * C * C * itemsize + 2 * nwin_bias + (4 * C * C + 6 * C) * 4
+    peak = H100_BF16_FLOPS if itemsize == 2 else H100_FP32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, tokens * flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_train_kernels_vs_plain():
+    """K7/K8/K9 at the stage 1-3 shapes (B=64, shift 0 and 4) in bf16 and fp32,
+    K6 at the stage-4 shape in bf16 and at a shifted stage-1 shape, with
+    drop-path scales holding 0 and 1/keep; a dropped row passes its
+    cotangent through exactly."""
+    import torch
+
+    from zs_aac_tpu_torch.ops import window_attn as wa
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    worst = {"K6": 0.0, "K7": 0.0, "K8": 0.0, "K9": 0.0}
+    cases = [(torch.bfloat16, st, shift) for st in STAGES for shift in (0, 4)]
+    cases += [(torch.float32, st, 4) for st in STAGES]
+    for dtype, (H, C, heads), shift in cases:
+        name = str(dtype).split(".")[1]
+        x, w, bias, gout, m1, m2 = _train_case(64, H, C, heads, dtype, g)
+        cfg = (8, heads, shift, 1e-6)
+        bf16 = dtype == torch.bfloat16
+        out = wa.fused_swin_block_train(x, *w, bias, m1, m2, *cfg)
+        out_ref, y_ref = wa.swin_block_train_plain(x, *w, bias, m1, m2, *cfg)
+        ln2_fc = (w[6], w[7], w[8], w[9], w[10])
+        k8 = wa.mlp_bwd(y_ref, gout, m2, *ln2_fc, 1e-6)
+        r8 = wa.mlp_bwd_plain(y_ref, gout, m2, *ln2_fc, 1e-6)
+        dy = r8[0]
+        k9 = wa.attn_ln1_bwd(x, dy, m1, *w[:5], bias, *cfg)
+        r9 = wa.attn_ln1_bwd_plain(x, dy, m1, *w[:5], bias, *cfg)
+        if bf16:
+            o32 = wa.swin_block_train_plain(*_f32([x] + w), bias, m1, m2, *cfg)[:1]
+            p8 = wa.mlp_bwd_plain(*_f32([y_ref, gout]), m2, *_f32(ln2_fc), 1e-6)
+            p9 = wa.attn_ln1_bwd_plain(*_f32([x, dy]), m1, *_f32(w[:5]), bias, *cfg)
+        else:
+            o32, p8, p9 = [None], [None] * 7, [None] * 8
+        torch.cuda.synchronize()
+        e7 = _compare(f"K7 {name} {H}x{H}x{C} shift={shift}", ["out"], [out], [out_ref], o32)
+        e8 = _compare(f"K8 {name} {H}x{H}x{C}",
+                      ["dy", "dln2_s", "dln2_b", "dfc1_w", "dfc1_b", "dfc2_w", "dfc2_b"], k8,
+                      r8, p8)
+        e9 = _compare(f"K9 {name} {H}x{H}x{C} shift={shift}",
+                      ["dx", "dln1_s", "dln1_b", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b",
+                       "dbias"], k9, r9, p9)
+        check(torch.equal(k8[0][0], gout[0]) and torch.equal(k9[0][1], dy[1]),
+              "a dropped row did not pass its cotangent through exactly")
+        print(f"[train-k] {name} B=64 {H}x{H}x{C} heads={heads} shift={shift}: max|kernel-plain| "
+              f"K7 {e7:.3g}, K8 {e8:.3g}, K9 {e9:.3g} (each output within train_tol)", flush=True)
+        if bf16:
+            worst.update(K7=max(worst["K7"], e7), K8=max(worst["K8"], e8), K9=max(worst["K9"], e9))
+    for dtype, (H, C, heads), shift in ((torch.bfloat16, (8, 768, 32), 0),
+                                        (torch.bfloat16, (64, 96, 4), 4),
+                                        (torch.float32, (64, 96, 4), 4)):
+        name = str(dtype).split(".")[1]
+        x, w, bias, gout, _, _ = _train_case(64, H, C, heads, dtype, g)
+        k6 = wa.window_attention_bwd(x, gout, *w[2:6], bias, 8, heads, shift)
+        r6 = wa.window_attention_bwd_plain(x, gout, *w[2:6], bias, 8, heads, shift)
+        p6 = (wa.window_attention_bwd_plain(*_f32([x, gout] + w[2:6]), bias, 8, heads, shift)
+              if dtype == torch.bfloat16 else [None] * 6)
+        torch.cuda.synchronize()
+        e6 = _compare(f"K6 {name} {H}x{H}x{C} shift={shift}",
+                      ["dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias"], k6, r6, p6)
+        print(f"[train-k] K6 {name} B=64 {H}x{H}x{C} heads={heads} shift={shift}: "
+              f"max|kernel-plain| {e6:.3g} (each output within train_tol)", flush=True)
+        if dtype == torch.bfloat16 and H == 8:
+            worst["K6"] = e6
+    return worst
+
+
+def phase_grad_repair():
+    """Gradients through K3 (the autograd of the plain block) and K5 (K6) on
+    the card equal those of the plain versions' autograd."""
+    import torch
+
+    from zs_aac_tpu_torch.ops import window_attn as wa
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x, w, bias, gout, _, _ = _train_case(8, 32, 192, 8, dtype, g)
+        leaves = [t.clone().requires_grad_() for t in [x] + w + [bias]]
+        plain = [t.clone().requires_grad_() for t in [x] + w + [bias]]
+        cfg = (8, 8, 4)
+        got = torch.autograd.grad(wa.fused_swin_block(*leaves, *cfg, 1e-6), leaves, gout)
+        want = torch.autograd.grad(wa.swin_block_plain(*plain, *cfg, 1e-6), plain, gout)
+        e3 = _compare(f"K3 gradients {name}", [f"d{i}" for i in range(14)], got, want,
+                      [None] * 14 if dtype == torch.float32 else want)
+        attn = [leaves[0]] + leaves[3:7] + [leaves[13]]
+        attn_p = [plain[0]] + plain[3:7] + [plain[13]]
+        got = torch.autograd.grad(wa.fused_window_attention(*attn, *cfg), attn, gout)
+        want = torch.autograd.grad(wa.window_attention_plain(*attn_p, *cfg), attn_p, gout)
+        refs = [None] * 6
+        if dtype == torch.bfloat16:
+            a32 = [t.detach().float().requires_grad_() for t in attn_p[:-1]] + [attn_p[-1]]
+            refs = torch.autograd.grad(wa.window_attention_plain(*a32, *cfg), a32, gout.float())
+        e5 = _compare(f"K5/K6 gradients {name}", ["dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b",
+                                                   "dbias"], got, want, refs)
+        print(f"[repair] {name} B=8 32x32x192: gradients through K3 and K5 carried "
+              f"(max|diff| to the plain autograd: K3 {e3:.3g}, K5/K6 {e5:.3g})", flush=True)
+
+
+def phase_fixture_train():
+    """The committed tiny-ASE train run (3 steps, fp32, TF32 off) through
+    the card's dispatch: K7/K8/K9 in stage 0, K5/K6 in stage 1."""
+    import json as _json
+
+    from zs_aac_tpu_torch import testdata
+    from zs_aac_tpu_torch.ops.logmel import log_mel
+    from zs_aac_tpu_torch.ops import window_attn as wa
+
+    kernels = {"K2": log_mel, "K5": wa.fused_window_attention, "K6": wa.window_attention_bwd,
+               "K7": wa.fused_swin_block_train, "K8": wa.mlp_bwd, "K9": wa.attn_ln1_bwd}
+    for fn in kernels.values():
+        fn.launches = 0
+    got = testdata.replay_train_fixture(device="cuda", fused_attn=True, fused_block=[0])
+    per_step = {k: fn.launches / testdata.TRAIN_STEPS for k, fn in kernels.items()}
+    want = _json.loads((testdata.TINY_ASE_DIR / "train_expected.json").read_text())
+    err = testdata.train_fixture_errors(got, want)
+    print(f"[fixture-train] tiny ASE, {testdata.TRAIN_STEPS} steps on cuda: losses "
+          f"{[round(v, 6) for v in got['losses']]} (JAX {[round(v, 6) for v in want['losses']]}); "
+          f"relative errors {err} (tol {TRAIN_FIXTURE_TOL}); launches per step {per_step}",
+          flush=True)
+    check(all(err[k] <= TRAIN_FIXTURE_TOL[k] for k in err),
+          "the train fixture differs from the JAX-recorded run")
+    check(per_step == {"K2": 1, "K5": 2, "K6": 2, "K7": 2, "K8": 2, "K9": 2},
+          f"fixture launches per step {per_step}")
+
+
+def _write_corpus(root):
+    """A toy retrieval corpus: 8 clips of 2-4 s, 5 captions each, train/val/
+    test manifests, a single-caption pretraining manifest and a vocab."""
+    import os
+    import wave as wavemod
+
+    import numpy as np
+
+    words = ["dog", "rain", "wind", "bird", "car", "park", "sound"]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words + [".", "a", "the"]
+    os.makedirs(f"{root}/Toy/json_files", exist_ok=True)
+    os.makedirs(f"{root}/wavs", exist_ok=True)
+    rng = np.random.default_rng(0)
+    items = []
+    for i in range(8):
+        dur = float(rng.uniform(2, 4))
+        x = (rng.standard_normal(int(dur * 32000)) * 0.05).astype(np.float32)
+        path = f"{root}/wavs/a{i}.wav"
+        with wavemod.open(path, "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(32000)
+            f.writeframes((x * 32767).astype("<i2").tobytes())
+        item = {"audio": path, "duration": dur, "id": i}
+        for c in range(1, 6):
+            item[f"caption_{c}"] = " ".join(words[int(k)] for k in rng.integers(0, 7, 5)) + "."
+        items.append(item)
+    for split in ("train", "val", "test"):
+        with open(f"{root}/Toy/json_files/{split}.json", "w") as f:
+            json.dump({"num_captions_per_audio": 5, "data": items}, f)
+    with open(f"{root}/pretrain.json", "w") as f:
+        json.dump({"num_captions_per_audio": 1,
+                   "data": [{"audio": it["audio"], "caption": it["caption_1"], "id": i,
+                             "duration": it["duration"]} for i, it in enumerate(items)]}, f)
+    with open(f"{root}/vocab.txt", "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    return {
+        "exp_name": "smoke", "seed": 20, "embed_size": 16, "temp": 0.07,
+        "embed_regularization": True, "json_files": [f"{root}/pretrain.json"],
+        "val_datasets": ["Toy"], "data_root": root, "output_dir": f"{root}/outputs",
+        "audio_args": {"sr": 32000, "n_fft": 1024, "hop_length": 320, "f_min": 50,
+                       "f_max": 14000, "n_mels": 16, "max_length": 5, "mono": True},
+        "audio_encoder_args": {"type": "transformer", "model": "HTSAT"},
+        "htsat_kwargs": {"spec_size": 128, "patch_size": 4, "patch_stride": 4, "embed_dim": 16,
+                         "depths": [2, 2], "num_heads": [2, 4], "window_size": 4, "n_mels": 16,
+                         "drop_path_rate": 0.1},
+        "data_args": {"batch_size": 4},
+        "text_encoder_args": {"type": "bert-tiny-test", "vocab": f"{root}/vocab.txt"},
+        "optim_args": {"lr": 5e-4, "scheduler": "cosine", "optimizer_name": "adam",
+                       "warmup_epochs": 0},
+        "training": {"spec_augmentation": True, "epochs": 1, "clip_grad": 2},
+    }
+
+
+def phase_drivers():
+    """``pretrain.run`` for 2 steps and a ``finetune`` warm start on a toy
+    corpus, on the card (the train kernels in stage 0, K5/K6 in stage 1)."""
+    import os
+
+    import torch
+
+    from zs_aac_tpu_torch.ops import window_attn as wa
+    from zs_aac_tpu_torch.train import finetune, pretrain
+
+    # the pretrain driver logs to wandb wherever it imports; keep it offline
+    os.environ["WANDB_MODE"] = "disabled"
+    with tempfile.TemporaryDirectory() as root:
+        config = _write_corpus(root)
+        for fn in (wa.fused_swin_block_train, wa.window_attention_bwd):
+            fn.launches = 0
+        ckpt_dir = pretrain.run(config, device="cuda", max_steps=2, max_val_batches=2)
+        best = os.path.join(ckpt_dir, "best_model.ckpt")
+        check(os.path.exists(best), "pretrain wrote no best_model.ckpt")
+        saved = torch.load(best, map_location="cpu", weights_only=True)
+        check(saved["step"] == 2, f"pretrain checkpoint at step {saved['step']}")
+        ck2 = finetune.run(config, "Toy", device="cuda", pretrain_path=best, max_steps=1,
+                           max_val_batches=2)
+        check(os.path.exists(os.path.join(ck2, "best_model.ckpt")), "finetune wrote no checkpoint")
+        log = "".join(open(os.path.join(d, f)).read() for d, _, fs in os.walk(root)
+                      for f in fs if f == "output.log")
+        check("Toy-test[best_model] t2a" in log and "warm start from" in log,
+              "the drivers' logs lack the test evaluation or the warm start")
+        launches = (wa.fused_swin_block_train.launches, wa.window_attention_bwd.launches)
+    print(f"[drivers] pretrain.run 2 steps + finetune.run warm start on cuda: checkpoints "
+          f"written, test-set recalls logged; K7/K6 launches {launches}", flush=True)
+    check(launches == (6, 6), f"driver launches K7/K6 {launches} (expected 6, 6)")
+
+
+def _train_batch(B, T, L, g):
+    import torch
+
+    t = torch.arange(T, device="cuda") / 32000.0
+    freqs = torch.rand(B, 1, generator=g, device="cuda") * 4000 + 100
+    wave = (0.3 * torch.sin(2 * math.pi * freqs * t)
+            + 0.05 * torch.randn(B, T, generator=g, device="cuda"))
+    ids = torch.randint(1000, 30000, (B, L), generator=g, device="cuda")
+    ids[:, 0] = 101
+    mask = torch.ones(B, L, dtype=torch.int64, device="cuda")
+    lens = torch.randint(6, L + 1, (B,), generator=g, device="cuda")
+    mask[torch.arange(L, device="cuda")[None] >= lens[:, None]] = 0
+    # pairs of rows share an audio id: multi-positive targets
+    return {"wave": wave, "input_ids": ids, "attention_mask": mask,
+            "idx": torch.arange(B, device="cuda") // 2}
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths of a nested dict, in its key order."""
+    out = []
+    for k, v in tree.items():
+        out += _leaf_names(v, f"{prefix}{k}/") if isinstance(v, dict) else [prefix + k]
+    return out
+
+
+def _loss_grads(ase, variables, spec, batch, seed, grads=True):
+    """The train-mode loss with the draws of generator ``seed`` (and the
+    gradients of every parameter leaf, or the loss alone as a float)."""
+    import torch
+
+    from zs_aac_tpu_torch.models.convert import tree_map
+    from zs_aac_tpu_torch.train.optim import tree_leaves
+
+    req = tree_map(lambda t: t.detach().requires_grad_(grads), variables["params"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.set_grad_enabled(grads):
+        loss, _ = ase({"params": req, "batch_stats": variables["batch_stats"]}, spec,
+                      batch["input_ids"], batch["attention_mask"], batch["idx"], train=True,
+                      generator=gen)
+    if not grads:
+        return loss.item()
+    return loss, torch.autograd.grad(loss, tree_leaves(req), allow_unused=True)
+
+
+def phase_train_full_width():
+    """HTSAT (extract_data.yaml's geometry) + BERT-base, embed 1024, bf16
+    compute over fp32 parameters, B=64 ten-second waves and 30 token ids:
+    one warm-up and 5 timed train steps on one batch through K2, K7/K8/K9
+    (stages 1-3) and K5/K6 (stage 4), Adam lr 5e-5 cosine, clip 2, spec
+    augmentation and drop path 0.1 on."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zs_aac_tpu_torch.models.ase import ASE
+    from zs_aac_tpu_torch.ops import window_attn as wa
+    from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel, log_mel_plain
+    from zs_aac_tpu_torch.train.contrastive import create_ase_state, make_ase_train_step
+    from zs_aac_tpu_torch.train.pretrain import build_ase_from_config, build_optimizer
+
+    B, T, L, steps = 64, 10 * 32000, 30, 5
+    ase, cfg = build_ase_from_config(TRAIN_CONFIG, device="cuda")
+    plain = ASE(dataclasses.replace(cfg, fused_attn=False, fused_block=False))
+    check(cfg.fused_attn is True and cfg.fused_block == (0, 1, 2) and cfg.dtype == torch.bfloat16,
+          f"train dispatch {cfg.fused_attn}, {cfg.fused_block}, {cfg.dtype}")
+    mel_cfg = LogMelConfig.from_dict(TRAIN_CONFIG["audio_args"])
+    optimizer = build_optimizer(TRAIN_CONFIG, steps_per_epoch=1)
+    state = create_ase_state(0, ase, optimizer, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    batch = _train_batch(B, T, L, g)
+    with torch.no_grad():
+        spec_k = log_mel(batch["wave"], mel_cfg)[:, 0]
+    # the objective on this batch with one fixed set of random draws (spec
+    # augmentation, drop path), before and after the steps: the steps' own
+    # losses each see fresh draws
+    fixed = lambda st: _loss_grads(ase, {"params": st.params, "batch_stats": st.batch_stats},
+                                   spec_k, batch, 78, grads=False)
+    before = fixed(state)
+    step = make_ase_train_step(ase, optimizer, mel_cfg, device="cuda")
+    state, loss0 = step(state, batch, 0)                 # warm-up
+    torch.cuda.synchronize()
+    kernels = {"K2": log_mel, "K5": wa.fused_window_attention, "K6": wa.window_attention_bwd,
+               "K7": wa.fused_swin_block_train, "K8": wa.mlp_bwd, "K9": wa.attn_ln1_bwd}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    losses = []
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):                               # the main path, counted
+        state, loss = step(state, batch, 0)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    step_ms = start.elapsed_time(end) / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {k: fn.launches / steps for k, fn in kernels.items()}
+    losses = [float(loss0)] + [float(v) for v in losses]
+    print(f"[train] B={B} 10 s clips + {L} tokens, bf16, seeded weights: losses {losses}; "
+          f"launches per step {per_step} (expected K2 1, K5 2, K6 2, K7 10, K8 10, K9 10)",
+          flush=True)
+    check(per_step == {"K2": 1, "K5": 2, "K6": 2, "K7": 10, "K8": 10, "K9": 10},
+          "train-step launch counts off the main path's")
+    after = fixed(state)
+    print(f"[train] loss on the batch with fixed draws: {before:.6f} before the warm-up, "
+          f"{after:.6f} after the 5 timed steps", flush=True)
+    check(all(math.isfinite(v) for v in losses + [before, after]), "non-finite train loss")
+    check(after < before, "the loss did not fall over the steps")
+    print(f"[train] step {step_ms:.2f} ms by CUDA events ({wall * 1e3:.2f} ms host clock) -> "
+          f"{B / step_ms * 1e3:.1f} samples/s; peak memory {peak:.2f} GiB", flush=True)
+
+    # gradients: kernel path vs all-plain path, one batch, one generator seed
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    with torch.no_grad():
+        spec_p = log_mel_plain(batch["wave"], mel_cfg)[:, 0]
+    lk, gk = _loss_grads(ase, variables, spec_k, batch, 77)
+    lp, gp = _loss_grads(plain, variables, spec_p, batch, 77)
+    plain32 = ASE(dataclasses.replace(cfg, fused_attn=False, fused_block=False,
+                                      dtype=torch.float32))
+    _, g32 = _loss_grads(plain32, variables, spec_p, batch, 77)
+    named, noisy = [], []
+    for name, a, b, c in zip(_leaf_names(variables["params"]), gk, gp, g32):
+        if a is None or b is None:
+            continue
+        a, b, c = a.float().reshape(-1), b.float().reshape(-1), c.float().reshape(-1)
+        noise = (b - c).norm().item() / max(c.norm().item(), 1e-30)
+        if noise > GRAD_NOISE_MAX:
+            noisy.append((noise, name))
+            continue
+        ratio = a.norm().item() / b.norm().item()
+        named.append((torch.nn.functional.cosine_similarity(a, b, dim=0).item(), name,
+                      b.norm().item(), (a - b).norm().item(), ratio, noise,
+                      (a - c).norm().item() / c.norm().item(), b.numel()))
+    cos = [r[0] for r in named]
+    for c, name, nb, nd, ratio, noise, knoise, _ in sorted(named)[:6]:
+        print(f"[train]   lowest cosine {c:.5f} {name}: |g_plain| {nb:.3g}, |g_kernel - g_plain| "
+              f"{nd:.3g}, norm ratio {ratio:.5f}; distance from fp32: plain {noise:.3g}, kernel "
+              f"{knoise:.3g}", flush=True)
+    for c, name, nb, nd, ratio, noise, knoise, n in sorted(named, key=lambda r: -abs(r[4] - 1))[:6]:
+        print(f"[train]   norm ratio {ratio:.5f} {name} ({n} elements): cosine {c:.5f}, |g_plain| "
+              f"{nb:.3g}; distance from fp32: plain {noise:.3g}, kernel {knoise:.3g}", flush=True)
+    for noise, name in sorted(noisy):
+        print(f"[train]   left out, plain bf16 distance from fp32 {noise:.3g}: {name}", flush=True)
+    worst_ratio = max(abs(r[4] - 1) for r in named if r[7] > 1)
+    print(f"[train] gradients, kernel path vs all-plain path: losses {lk.item():.6f} / "
+          f"{lp.item():.6f}; over {len(named)} leaves ({len(noisy)} of rounding noise above "
+          f"{GRAD_NOISE_MAX} left out) per-leaf cosine min {min(cos):.5f}, mean "
+          f"{statistics.mean(cos):.5f} (threshold {GRAD_COSINE_MIN}); |norm ratio - 1| max "
+          f"{worst_ratio:.5f} over the leaves of more than one element (threshold "
+          f"{GRAD_NORM_TOL})", flush=True)
+    check(min(cos) >= GRAD_COSINE_MIN, "kernel-path gradients diverge from the plain path's")
+    check(worst_ratio <= GRAD_NORM_TOL, "kernel-path gradient norms differ from the plain path's")
+    del g32
+    del gk, gp
+
+    # each train kernel alone at the step's shapes, beside its plain version and bound
+    gw = torch.Generator(device="cuda").manual_seed(11)
+    per_call = {"K6": [], "K7": [], "K8": [], "K9": []}
+    for (H, C, heads), n_calls in zip(STAGES + [(8, 768, 32)], (2, 2, 6, 2)):
+        x, w, bias, gout, m1, m2 = _train_case(B, H, C, heads, torch.bfloat16, gw)
+        cfg_b = (8, heads, 0, 1e-6)
+        if H == 8:
+            calls = {"K6": (lambda r: wa.window_attention_bwd(x, gout, *w[2:6], bias, 8, heads, 0),
+                            lambda r: wa.window_attention_bwd_plain(x, gout, *w[2:6], bias, 8,
+                                                                    heads, 0))}
+        else:
+            with torch.no_grad():
+                _, y = wa.swin_block_train_plain(x, *w, bias, m1, m2, *cfg_b)
+            ln2_fc = (w[6], w[7], w[8], w[9], w[10])
+            calls = {
+                "K7": (lambda r: wa.fused_swin_block_train(x, *w, bias, m1, m2, *cfg_b),
+                       lambda r: wa.swin_block_train_plain(x, *w, bias, m1, m2, *cfg_b)),
+                "K8": (lambda r: wa.mlp_bwd(y, gout, m2, *ln2_fc, 1e-6),
+                       lambda r: wa.mlp_bwd_plain(y, gout, m2, *ln2_fc, 1e-6)),
+                "K9": (lambda r: wa.attn_ln1_bwd(x, gout, m1, *w[:5], bias, *cfg_b),
+                       lambda r: wa.attn_ln1_bwd_plain(x, gout, m1, *w[:5], bias, *cfg_b))}
+        for key, (fn, pf) in calls.items():
+            with torch.no_grad():
+                fn(0)
+                ms, pms = timed_ms(fn, 3), timed_ms(pf, 2)
+            bms, by = train_bound(key, B, H, C, heads, 2)
+            per_call[key] += [(ms, pms, bms, by)] * n_calls
+            print(f"[train] {key} B={B} {H}x{H}x{C} heads={heads} bf16: {ms * 1e3:.1f} us per "
+                  f"call x {n_calls} per step (bound {bms * 1e3:.1f} us by {by}, "
+                  f"{bms / ms:.2%}), plain {pms * 1e3:.1f} us", flush=True)
+    stats = {}
+    for key, rows in per_call.items():
+        stats[key] = {"ms": statistics.mean(r[0] for r in rows),
+                      "plain_ms": statistics.mean(r[1] for r in rows),
+                      "bound_ms": statistics.mean(r[2] for r in rows), "bound_by": rows[0][3]}
+        print(f"[train] {key} share of one step: {len(rows)} calls, "
+              f"{sum(r[0] for r in rows):.2f} ms of {step_ms:.2f} ms", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, 0)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # device time: the kernels' own events (CPU-side ops also carry the
+    # device time of the kernels they enclose)
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+    print(f"[profile] one train step under torch.profiler: wall {pwall * 1e3:.2f} ms, device "
+          f"time {dev_ms:.2f} ms (device idle {1 - dev_ms / (pwall * 1e3):.1%} of the wall)",
+          flush=True)
+    print(events.table(sort_by="cuda_time_total", row_limit=20), flush=True)
+    return per_step, stats
+
+
 def main():
     import torch
 
@@ -669,6 +1225,11 @@ def main():
     window_err = phase_window_vs_plain()
     phase_fixture_bank()
     enc_launches, enc = phase_encode_full_width()
+    train_err = phase_train_kernels_vs_plain()
+    phase_grad_repair()
+    phase_fixture_train()
+    phase_drivers()
+    train_launches, train = phase_train_full_width()
 
     kernels = [{
         "name": "decode_attn_q8",
@@ -696,6 +1257,16 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": enc_launches.get(key, 0), "max_abs_err": err,
                         **enc[key], "library_ms": None})
+    for key, name, source, line in (
+            ("K6", "window_attention_bwd", "swin_train.cu", 757),
+            ("K7", "fused_swin_block_train", "window_attn.cu", 1147),
+            ("K8", "mlp_bwd", "swin_train.cu", 1229),
+            ("K9", "attn_ln1_bwd", "swin_train.cu", 1297)):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"zs_aac_tpu_torch/csrc/{source}",
+                        "replaces": f"zs_aac_tpu/ops/window_attn.py:{line}",
+                        "launches": int(train_launches[key]), "max_abs_err": train_err[key],
+                        **train[key], "library_ms": None})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -115,8 +115,10 @@ def test_window_partition_roundtrip():
     torch.testing.assert_close(th._window_reverse(w, 4, 16, 16), x, rtol=0, atol=0)
 
 
-def test_training_waits_for_a_later_slice():
+def test_train_mode_returns_batch_stats():
+    """Train mode returns the new batch statistics beside the embedding
+    (``tests/test_torch_htsat_train.py`` holds both to the JAX package)."""
     model = th.HTSAT(**TINY)
     variables = model.init(seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.apply(variables, torch.zeros(1, 100, 16), train=True)
+    emb, stats = model.apply(variables, torch.randn(2, 100, 16), train=True)
+    assert emb.shape == (2, model.num_features) and set(stats["bn0"]) == {"mean", "var"}

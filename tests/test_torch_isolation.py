@@ -15,7 +15,7 @@ import torch
 import zs_aac_tpu_torch
 from zs_aac_tpu_torch.models import ase, bert, caption, convert, gpt2, htsat, mapper
 from zs_aac_tpu_torch.pipeline import extract
-from zs_aac_tpu_torch.train import contrastive, predict_prompt
+from zs_aac_tpu_torch.train import contrastive, finetune, optim, predict_prompt, pretrain
 from zs_aac_tpu_torch.utils import device as device_mod
 
 PKG = Path(zs_aac_tpu_torch.__file__).parent
@@ -28,8 +28,10 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    kernels = {"zs_aac_tpu_torch.ops." + m for m in ("decode_attn", "logmel", "window_attn")}
-    assert kernels <= set(mods) and len(mods) >= 36
+    kernels = {"zs_aac_tpu_torch.ops." + m
+               for m in ("decode_attn", "logmel", "window_attn", "specaug")}
+    train = {"zs_aac_tpu_torch.train." + m for m in ("optim", "pretrain", "finetune")}
+    assert kernels | train <= set(mods) and len(mods) >= 47
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
@@ -48,6 +50,7 @@ def test_sources_name_no_jax_package():
 
 
 _HTSAT_ASE = ase.ASEConfig(audio_encoder="htsat")
+_ADAM = optim.get_optimizer(lambda step: 1e-3, "adam")
 
 # name -> (function, a call of it that takes the default device)
 ENTRY_POINTS = {
@@ -72,6 +75,11 @@ ENTRY_POINTS = {
     "load_ase_encoders": (extract.load_ase_encoders, lambda: extract.load_ase_encoders({})),
     "make_encode_fns": (contrastive.make_encode_fns,
                         lambda: contrastive.make_encode_fns(ase.ASE(_HTSAT_ASE))),
+    "create_ase_state": (contrastive.create_ase_state,
+                         lambda: contrastive.create_ase_state(0, ase.ASE(_HTSAT_ASE), _ADAM)),
+    "make_ase_train_step": (contrastive.make_ase_train_step,
+                            lambda: contrastive.make_ase_train_step(ase.ASE(_HTSAT_ASE), _ADAM)),
+    "pretrain.run": (pretrain.run, lambda: pretrain.run({})),
 }
 
 
@@ -106,3 +114,12 @@ def test_extract_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         extract.main(["--out_path", str(tmp_path / "bank.pkl"), "--config", "none.yaml"])
+
+
+@pytest.mark.parametrize("driver", [pretrain, finetune])
+def test_train_drivers_default_to_cuda_and_raise_without_it(driver, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.main(["-c", str(tmp_path / "none.yaml")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.main(["-c", str(tmp_path / "none.yaml"), "--device", "cuda"])

@@ -13,6 +13,9 @@ log-mel within 2e-3 dB (fp32 FFTs in another summation order, mel power far
 above the rounding floor on noise). K3/K5 outputs (~8) within 2e-4 in fp32
 (summation order) and, in bf16, two bf16 steps at the largest output,
 2**-6 * max|out| (an accumulator's last bit can flip one bf16 rounding).
+The train kernels K6-K9 and the K3/K5 gradients: see ``_check`` (fp32 1e-4
+of the largest entry; bf16 within twice the plain version's own distance
+from its fp32 evaluation).
 """
 
 import pytest
@@ -196,3 +199,161 @@ def test_htsat_kernel_dispatch_matches_plain():
                                                                   return_dict=True)
     for k in plain:
         torch.testing.assert_close(fused[k], plain[k], atol=1e-4, rtol=1e-4)
+
+
+# -- the train kernels: K7 (forward), K8, K9 (backward), K6 (K5's backward) --------
+#
+# Tolerances, per output relative to its largest entry. fp32: summation order
+# only, 1e-4 of the largest entry (measured: ~1e-6). bf16: both sides round
+# at the same points, but an fp32 accumulator summed in another order can
+# flip one bf16 rounding of an intermediate (q/k/v, do, ds, dh1, ...), and at
+# C=768 a flipped score moves a softmax row: the kernel is held within twice
+# the plain bf16 version's own distance from the plain version evaluated in
+# fp32 on the same inputs (the size of bf16 rounding noise for this output,
+# measured 1e-3..5e-3 of the largest entry), plus 2**-8 of the largest entry.
+
+
+def _check(name, got, want, want32=None):
+    scale = want.float().abs().max().item()
+    tol = 1e-4 * scale + 1e-7
+    if want32 is not None:
+        tol = 2 * (want.float() - want32.float()).abs().max().item() + 2.0 ** -8 * scale
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0,
+                               msg=lambda m: f"{name}: {m}")
+
+
+def _f32(tensors):
+    return [t.float() if t.is_floating_point() else t for t in tensors]
+
+
+def _train_inputs(B, H, C, heads, dtype, window=8, seed=0):
+    x, w, bias = _window_inputs(B, H, C, heads, dtype, window=window, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    gout = (torch.randn(B, H, H, C, generator=g, device="cuda")).to(dtype)
+    m1 = torch.tensor([1.25, 0.0] * (B // 2), device="cuda")
+    m2 = torch.tensor([0.0, 1.25] * (B // 2), device="cuda")
+    return x, w, bias, gout, m1, m2
+
+
+TRAIN_CASES = [(2, 64, 96, 4, 8, 0), (2, 64, 96, 4, 8, 4), (2, 32, 192, 8, 8, 4),
+               (2, 16, 384, 16, 8, 4), (2, 16, 32, 4, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,H,C,heads,window,shift", TRAIN_CASES)
+def test_k7_k8_k9_match_plain(B, H, C, heads, window, shift, dtype):
+    _need_cuda()
+    x, w, bias, g, m1, m2 = _train_inputs(B, H, C, heads, dtype, window, seed=H + shift)
+    bf16 = dtype == torch.bfloat16
+    cfg = (window, heads, shift, 1e-6)
+    n = (wa.fused_swin_block_train.launches, wa.mlp_bwd.launches, wa.attn_ln1_bwd.launches)
+    out = wa.fused_swin_block_train(x, *w, bias, m1, m2, *cfg)
+    out_ref, y_ref = wa.swin_block_train_plain(x, *w, bias, m1, m2, *cfg)
+    ln2_fc = (w[6], w[7], w[8], w[9], w[10])
+    k8 = wa.mlp_bwd(y_ref, g, m2, *ln2_fc, 1e-6)
+    r8 = wa.mlp_bwd_plain(y_ref, g, m2, *ln2_fc, 1e-6)
+    dy = r8[0]
+    k9 = wa.attn_ln1_bwd(x, dy, m1, *w[:5], bias, *cfg)
+    r9 = wa.attn_ln1_bwd_plain(x, dy, m1, *w[:5], bias, *cfg)
+    torch.cuda.synchronize()
+    assert (wa.fused_swin_block_train.launches, wa.mlp_bwd.launches,
+            wa.attn_ln1_bwd.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    refs = [[None] * 20] * 3
+    if bf16:
+        refs = [[wa.swin_block_train_plain(*_f32([x] + w), bias, m1, m2, *cfg)[0]],
+                wa.mlp_bwd_plain(*_f32([y_ref, g]), m2, *_f32(ln2_fc), 1e-6),
+                wa.attn_ln1_bwd_plain(*_f32([x, dy]), m1, *_f32(w[:5]), bias, *cfg)]
+    _check("out", out, out_ref, refs[0][0])
+    for name, got, want, w32 in zip(["dy", "dln2_s", "dln2_b", "dfc1_w", "dfc1_b", "dfc2_w",
+                                     "dfc2_b"], k8, r8, refs[1]):
+        _check(name, got, want, w32)
+    for name, got, want, w32 in zip(["dx", "dln1_s", "dln1_b", "dqkv_w", "dqkv_b", "dproj_w",
+                                     "dproj_b", "dbias"], k9, r9, refs[2]):
+        _check(name, got, want, w32)
+    # dropped rows: dy = g where m2 = 0, and dx = dy where m1 = 0, exactly
+    assert torch.equal(k8[0][0], g[0]) and torch.equal(k9[0][1], dy[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,heads,shift,dtype", [
+    (4, 8, 768, 32, 0, torch.bfloat16), (2, 64, 96, 4, 4, torch.bfloat16),
+    (2, 64, 96, 4, 4, torch.float32), (2, 16, 384, 16, 0, torch.float32)])
+def test_k6_matches_plain(B, H, C, heads, shift, dtype):
+    _need_cuda()
+    x, w, bias, g, _, _ = _train_inputs(B, H, C, heads, dtype, seed=C + shift)
+    n = wa.window_attention_bwd.launches
+    got = wa.window_attention_bwd(x, g, *w[2:6], bias, 8, heads, shift)
+    want = wa.window_attention_bwd_plain(x, g, *w[2:6], bias, 8, heads, shift)
+    refs = [None] * 6
+    if dtype == torch.bfloat16:
+        refs = wa.window_attention_bwd_plain(*_f32([x, g] + w[2:6]), bias, 8, heads, shift)
+    torch.cuda.synchronize()
+    assert wa.window_attention_bwd.launches == n + 1
+    for name, a, b, r in zip(["dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias"], got,
+                             want, refs):
+        _check(name, a, b, r)
+
+
+@pytest.mark.cuda
+def test_k3_k5_wrappers_carry_gradients_on_cuda():
+    """``requires_grad`` inputs on the card get gradients through K3 (the
+    autograd of the plain block) and K5 (K6), equal to the plain versions'."""
+    _need_cuda()
+    x, w, bias, g, _, _ = _train_inputs(2, 32, 192, 8, torch.float32, seed=3)
+    leaves = [t.clone().requires_grad_() for t in [x] + w + [bias]]
+    plain = [t.clone().requires_grad_() for t in [x] + w + [bias]]
+    cfg = (8, 8, 4)
+    out = wa.fused_swin_block(*leaves, *cfg, 1e-6)
+    want = torch.autograd.grad(wa.swin_block_plain(*plain, *cfg, 1e-6), plain, g)
+    got = torch.autograd.grad(out, leaves, g)
+    for a, b in zip(got, want):
+        assert a is not None
+        _check("grad", a, b)
+    attn = [leaves[0]] + leaves[3:7] + [leaves[13]]
+    attn_p = [plain[0]] + plain[3:7] + [plain[13]]
+    n = wa.window_attention_bwd.launches
+    got = torch.autograd.grad(wa.fused_window_attention(*attn, *cfg), attn, g)
+    want = torch.autograd.grad(wa.window_attention_plain(*attn_p, *cfg), attn_p, g)
+    assert wa.window_attention_bwd.launches == n + 1
+    for a, b in zip(got, want):
+        _check("grad", a, b)
+
+
+@pytest.mark.cuda
+def test_train_kernels_refuse_what_they_do_not_take():
+    _need_cuda()
+    x, w, bias, g, m1, m2 = _train_inputs(2, 8, 768, 32, torch.float32)   # fp32 stage 4
+    with pytest.raises(ValueError, match="shared memory"):
+        wa.window_attention_bwd(x, g, *w[2:6], bias, 8, 32, 0)
+    x, w, bias, g, m1, m2 = _train_inputs(2, 16, 96, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        wa.mlp_bwd(x.transpose(1, 2), g, m2, w[6], w[7], w[8], w[9], w[10], 1e-6)
+
+
+@pytest.mark.cuda
+def test_htsat_train_dispatch_matches_plain():
+    """The tiny HTSAT in fp32 on the card, train mode with drop path and spec
+    augmentation on one generator seed: K7/K8/K9 in stage 0 and K5/K6 in
+    stage 1 against the plain path, loss and every gradient within 1e-4."""
+    _need_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    from zs_aac_tpu_torch.models.htsat import HTSAT
+    from zs_aac_tpu_torch.models.convert import tree_map
+
+    geo = dict(spec_size=64, patch_stride=4, patch_size=4, embed_dim=16, depths=(2, 2),
+               num_heads=(2, 4), window_size=4, n_mels=16, drop_path_rate=0.2)
+    variables = HTSAT(**geo).init(seed=0, device="cuda")
+    spec = torch.randn(4, 100, 16, generator=torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    res = []
+    for flags in ({}, {"fused_attn": True, "fused_block": (0,)}):
+        params = tree_map(lambda t: t.clone().requires_grad_(), variables["params"])
+        out, _ = HTSAT(**geo, **flags).apply(
+            {"params": params, "batch_stats": variables["batch_stats"]}, spec, train=True,
+            generator=torch.Generator(device="cuda").manual_seed(5))
+        leaves = [params["layer0_block1"]["attn"]["qkv"]["kernel"],
+                  params["layer1_block0"]["attn"]["rpb_table"], params["patch_proj"]["kernel"]]
+        res.append([out.detach()] + list(torch.autograd.grad(out.square().sum(), leaves)))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item() + 1e-6, rtol=0)

@@ -1,8 +1,12 @@
-// Kernels K3 and K5: the whole eval Swin block (K3) and its window-attention
-// half (K5), on x [B, H, W, C] in fp32 or bf16.
+// Kernels K3, K5 and K7: the whole eval Swin block (K3), its window-attention
+// half (K5) and the whole train-mode block (K7), on x [B, H, W, C] in fp32 or
+// bf16.
 //
 // K3 replaces the Pallas TPU kernel zs_aac_tpu/ops/window_attn.py::
-// _block_kernel and K5 replaces ::_kernel. One template holds both: kMlp
+// _block_kernel, K5 replaces ::_kernel and K7 ::_block_train_kernel. K7 is
+// K3 with per-sample drop-path keep scales m1, m2 (rounded to T, as the TPU
+// kernel rounds them): y = x + m1 * attn and out = y + m2 * z, and y is
+// also written out for the backward (K8 reads it). One template holds all: kMlp
 // switches the LN1 in front and the residual + LN2 + MLP + residual behind
 // the attention. Because the MLP runs over the hidden dimension in chunks,
 // accumulating fc2 in fp32, K3 also computes ::_block_kernel_stream's
@@ -58,84 +62,11 @@
 //        -Xcompiler -fPIC (no fast-math: expf, erff and the divisions stay
 //        IEEE).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "swin_common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kPad = 8;    // extra elements per channel-major row (bank spread)
-constexpr int kChunk = 64; // hidden columns per MLP chunk
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
-template <typename T> __device__ __forceinline__ T to_t(float x);
-template <> __device__ __forceinline__ float to_t<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 to_t<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Round through T (the identity for fp32).
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// 8 consecutive values from shared memory (16-byte aligned).
-__device__ __forceinline__ void ld8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void ld8(const __nv_bfloat16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
-}
-
-// out(r, c) = sum_k A[k * lda + r] * B[k * ldb + bcol(c)] for r < nrows
-// (a multiple of 8) and c < ncols. A lies in shared memory, k-major; B in
-// global or shared memory. Each work item is 8 rows of one column, handed
-// to epi(r0, c, acc[8]); consecutive threads take consecutive columns.
-template <typename TA, typename TB, typename BCol, typename Epi>
-__device__ __forceinline__ void block_gemm(const TA* A, int lda, const TB* B, int ldb,
-                                           int K, int nrows, int ncols, BCol bcol, Epi epi) {
-  const int items = (nrows >> 3) * ncols;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int c = it % ncols, r0 = (it / ncols) << 3;
-    const TB* bp = B + bcol(c);
-    const TA* ap = A + r0;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float a[8];
-      ld8(ap + k * lda, a);
-      const float bv = ld(bp + static_cast<int64_t>(k) * ldb);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] = fmaf(a[i], bv, acc[i]);
-    }
-    epi(r0, c, acc);
-  }
-}
+using namespace swin;
 
 struct Params {
   const void* x;
@@ -145,9 +76,12 @@ struct Params {
   const float* bias;
   int H, W, C, heads, window, shift, hidden, rows;
   float eps, scale;
+  // K7 (train mode) only, else null: the post-attention residual y out and
+  // the per-sample drop-path keep scales m1, m2 [B]
+  void* y;
+  const float *m1, *m2;
 };
 
-__host__ __device__ inline int align16(int bytes) { return (bytes + 15) & ~15; }
 
 // Shared-memory bytes of the attention phase and of the MLP phase; the
 // launch takes the larger. Layouts (channel-major buffers padded by kPad):
@@ -175,6 +109,9 @@ __global__ void __launch_bounds__(kMaxThreads) swin_window_kernel(Params p) {
   const int b = blockIdx.x / (nH * nW);
   const int wi = win / nW, wj = win % nW;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  T* y = static_cast<T*>(p.y);
+  const bool train = kMlp && y != nullptr;
+  const float m1 = train ? rnd<T>(p.m1[b]) : 1.f, m2 = train ? rnd<T>(p.m2[b]) : 1.f;
 
   // element offset of token r's channel 0 (shift folded into the index)
   auto tok = [&](int r) -> int64_t {
@@ -268,7 +205,8 @@ __global__ void __launch_bounds__(kMaxThreads) swin_window_kernel(Params p) {
   }
   __syncthreads();
 
-  // 4. Projection; K5 writes it, K3 writes the residual y = x + attn.
+  // 4. Projection; K5 writes it, K3 writes the residual y = x + attn (K7:
+  //    y = x + m1 * attn, also written to p.y).
   const T* proj_b = static_cast<const T*>(p.proj_b);
   block_gemm(xa, ldn, static_cast<const T*>(p.proj_w), C, C, N, C, [](int c) { return c; },
              [&](int r0, int c, const float* acc) {
@@ -277,8 +215,10 @@ __global__ void __launch_bounds__(kMaxThreads) swin_window_kernel(Params p) {
                for (int i = 0; i < 8; ++i) {
                  const int64_t o = tok(r0 + i) + c;
                  float val = rnd<T>(acc[i] + bv);
+                 if (train) val = rnd<T>(m1 * val);
                  if (kMlp) val = ld(x + o) + val;
                  out[o] = to_t<T>(val);
+                 if (train) y[o] = to_t<T>(val);
                }
              });
   if (!kMlp) return;
@@ -316,23 +256,11 @@ __global__ void __launch_bounds__(kMaxThreads) swin_window_kernel(Params p) {
     for (int idx = threadIdx.x; idx < R * C; idx += blockDim.x) {
       const int r = idx / C, c = idx % C;
       const int64_t o = tok(g0 + r) + c;
-      out[o] = to_t<T>(ld(out + o) + rnd<T>(z[c * ldr + r] + ld(fc2_b + c)));
+      float zv = rnd<T>(z[c * ldr + r] + ld(fc2_b + c));
+      if (train) zv = rnd<T>(m2 * zv);
+      out[o] = to_t<T>(ld(out + o) + zv);
     }
   }
-}
-
-// Threads per block: ~1024 per SM over the blocks that shared memory lets
-// one SM hold (1 KB of it is reserved per block), in multiples of 256.
-int block_threads(int smem) {
-  int dev = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
-          cudaSuccess) {
-    return 256;
-  }
-  const int blocks = per_sm / (smem + 1024) > 1 ? per_sm / (smem + 1024) : 1;
-  const int threads = kMaxThreads / blocks / 256 * 256;
-  return threads > 256 ? threads : 256;
 }
 
 template <typename T, bool kMlp>
@@ -364,8 +292,10 @@ extern "C" int swin_window_smem_limit() {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, out and every weight; bias is fp32).
-// mlp: 0 = K5 (attention only), 1 = K3 (whole block). Returns the launch's
-// cudaGetLastError() as an int (0 = success).
+// mlp: 0 = K5 (attention only), 1 = K3 (whole block); with y, m1 and m2
+// given (mlp only) it is K7, the train forward: out = y + m2 * mlp(LN2 y)
+// with y = x + m1 * attn(LN1 x) written to y (m1, m2: fp32 [B]). Returns the
+// launch's cudaGetLastError() as an int (0 = success).
 extern "C" int swin_window(int dtype, int mlp, const void* x, void* out, const void* ln1_s,
                            const void* ln1_b, const void* qkv_w, const void* qkv_b,
                            const void* proj_w, const void* proj_b, const void* ln2_s,
@@ -373,15 +303,17 @@ extern "C" int swin_window(int dtype, int mlp, const void* x, void* out, const v
                            const void* fc2_w, const void* fc2_b, const void* bias, int B,
                            int H, int W, int C, int heads, int window, int shift,
                            int hidden, int rows, int chunk, float eps, float scale,
-                           void* stream) {
+                           void* y, const void* m1, const void* m2, void* stream) {
   const int N = window * window;
   if (chunk != kChunk || heads <= 0 || N % 8 || C % heads || H % window || W % window ||
-      (mlp && (rows <= 0 || rows % 8 || N % rows))) {
+      (mlp && (rows <= 0 || rows % 8 || N % rows)) ||
+      (y != nullptr && (!mlp || m1 == nullptr || m2 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p{x, out, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
            fc1_w, fc1_b, fc2_w, fc2_b, static_cast<const float*>(bias),
-           H, W, C, heads, window, shift, hidden, rows, eps, scale};
+           H, W, C, heads, window, shift, hidden, rows, eps, scale, y,
+           static_cast<const float*>(m1), static_cast<const float*>(m2)};
   const int itemsize = dtype == 0 ? 4 : 2;
   const int smem = swin_window_smem(itemsize, mlp, N, C, C / heads, rows);
   const int n_blocks = B * (H / window) * (W / window);

@@ -1,4 +1,4 @@
-"""ASE, the CLAP audio-text embedding model, eval only.
+"""ASE, the CLAP audio-text embedding model.
 
 The counterpart of the JAX package's ``models/ase.py``: the HTSAT audio
 tower and a BERT-family text tower, each projected by a Linear-ReLU-Linear
@@ -6,9 +6,13 @@ head into the shared ``embed_size`` space and L2-normalized. Variables are
 the JAX tree as tensors: ``{"params": {"audio_enc", "text_enc",
 "audio_proj", "text_proj", "temp"}, "batch_stats": {"audio_enc": ...}}``.
 
-Ported: the HTSAT audio tower and the BERT text towers of the registry.
-The Cnn14 and ResNet38 audio towers, the CLIP and GPT-2 text towers and the
-contrastive loss wait for later slices and raise ``NotImplementedError``.
+Ported: the HTSAT audio tower, the BERT text towers of the registry and the
+contrastive objective: ``ASE.__call__`` is the JAX ``ASE.__call__`` (the
+bidirectional soft-target ``atc_loss`` with multi-positive targets from the
+audio ids, the learnable temperature, the embedding regularization), and
+``ntxent_loss`` is ported beside it. The Cnn14 and ResNet38 audio towers and
+the CLIP and GPT-2 text towers wait for later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from zs_aac_tpu_torch.models.bert import BertConfig, BertEncoder, init_bert
 from zs_aac_tpu_torch.models.htsat import HTSAT
 from zs_aac_tpu_torch.utils.device import resolve_device
 
-__all__ = ["ASEConfig", "ASE", "TEXT_MODEL_REGISTRY", "text_config", "init_ase"]
+__all__ = ["ASEConfig", "ASE", "TEXT_MODEL_REGISTRY", "text_config", "init_ase",
+           "atc_loss", "ntxent_loss"]
 
 
 # name -> BertConfig kwargs (the JAX package's registry, itself the reference
@@ -85,6 +90,23 @@ class ASEConfig:
     dtype: Any = torch.float32
 
 
+def atc_loss(sim_a2t, sim_t2a, sim_targets=None):
+    """Bidirectional soft-target contrastive loss (the JAX ``atc_loss``)."""
+    if sim_targets is None:
+        sim_targets = torch.eye(sim_a2t.shape[0], dtype=sim_a2t.dtype, device=sim_a2t.device)
+    loss_a2t = -(torch.log_softmax(sim_a2t, dim=1) * sim_targets).sum(dim=1).mean()
+    loss_t2a = -(torch.log_softmax(sim_t2a, dim=1) * sim_targets).sum(dim=1).mean()
+    return (loss_a2t + loss_t2a) / 2
+
+
+def ntxent_loss(audio_embeds, text_embeds, temperature: float = 0.07):
+    """Cosine-similarity NT-Xent (the JAX ``ntxent_loss``)."""
+    a, t = _l2norm(audio_embeds), _l2norm(text_embeds)
+    a2t = a @ t.T / temperature
+    t2a = t @ a.T / temperature
+    return 0.5 * (-torch.log_softmax(a2t, dim=1).mean() - torch.log_softmax(t2a, dim=1).mean())
+
+
 def _l2norm(x):
     return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-12)
 
@@ -109,21 +131,46 @@ class ASE:
         self.audio_enc = HTSAT(**kw)
         self.text_enc = BertEncoder(text_config(cfg.text_model), cfg.dtype)
 
-    def encode_audio(self, variables, spec, train: bool = False):
-        """spec: [B, T, F] log-mel -> [B, embed_size] L2-normalized."""
+    def _audio(self, variables, spec, train: bool, generator):
+        """(L2-normalized audio embeddings, the tower's new batch_stats or None)."""
         p = variables["params"]
-        feats = self.audio_enc.apply({"params": p["audio_enc"],
-                                      "batch_stats": variables["batch_stats"]["audio_enc"]},
-                                     spec, train=train)
-        return _l2norm(_proj(feats, p["audio_proj"], self.cfg.dtype))
+        out = self.audio_enc.apply({"params": p["audio_enc"],
+                                    "batch_stats": variables["batch_stats"]["audio_enc"]},
+                                   spec, train=train, generator=generator)
+        feats, stats = out if train else (out, None)
+        return _l2norm(_proj(feats, p["audio_proj"], self.cfg.dtype)), stats
+
+    def encode_audio(self, variables, spec, train: bool = False, generator=None):
+        """spec: [B, T, F] log-mel -> [B, embed_size] L2-normalized."""
+        return self._audio(variables, spec, train, generator)[0]
 
     def encode_text(self, variables, input_ids, attention_mask=None, train: bool = False):
-        """-> [B, embed_size] L2-normalized [CLS] projection."""
-        if train:
-            raise NotImplementedError("ASE training waits for a later slice")
+        """-> [B, embed_size] L2-normalized [CLS] projection (the BERT tower
+        has no dropout, so ``train`` changes nothing)."""
         p = variables["params"]
         hidden = self.text_enc.apply(p["text_enc"], input_ids, attention_mask)
         return _l2norm(_proj(hidden[:, 0, :], p["text_proj"], self.cfg.dtype))
+
+    def __call__(self, variables, spec, input_ids, attention_mask, idx, train: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        """Contrastive loss over a batch -> ``(loss, new_batch_stats)``;
+        ``idx`` marks same-audio positives; ``generator`` feeds the audio
+        tower's spec augmentation and drop path in train mode."""
+        audio, stats = self._audio(variables, spec, train, generator)
+        text = self.encode_text(variables, input_ids, attention_mask, train=train)
+        idx = torch.as_tensor(idx, device=audio.device)
+        pos = (idx[:, None] == idx[None, :]).to(audio.dtype)
+        targets = pos / pos.sum(dim=1, keepdim=True)
+        temp = variables["params"]["temp"]
+        sim_a2t = (audio @ text.T).float() / temp
+        sim_t2a = (text @ audio.T).float() / temp
+        loss = atc_loss(sim_a2t, sim_t2a, targets.float())
+        if self.cfg.embed_regularization:
+            a, t = audio.float(), text.float()
+            loss = (loss + a.abs().mean() / torch.sqrt(a.square().sum())
+                    + t.abs().mean() / torch.sqrt(t.square().sum()))
+        new = {"audio_enc": stats} if stats is not None else variables["batch_stats"]
+        return loss, new
 
 
 def init_ase(cfg: ASEConfig, seed: int = 0, device="cuda") -> dict:

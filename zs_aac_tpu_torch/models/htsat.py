@@ -1,4 +1,4 @@
-"""HTSAT, the hierarchical token-semantic audio transformer (Swin), eval only.
+"""HTSAT, the hierarchical token-semantic audio transformer (Swin).
 
 The counterpart of the JAX package's ``models/htsat.py``: the log-mel
 spectrogram is folded into a ``spec_size`` square image (the time axis
@@ -16,7 +16,19 @@ a tuple of stage indices): a block of a ``fused_block`` stage is kernel K3
 (``fused_window_attention``) where ``fused_attn`` holds, else the plain
 version, and its LN/MLP are PyTorch ops. K3 takes every stage in bf16; a
 shape whose shared memory it cannot hold (fp32 at C=768) raises on the card.
-Training (spec augmentation, drop path) waits for a later slice.
+
+``apply(..., train=True, generator=g)`` is the train mode and returns
+``(output, new_batch_stats)``: ``bn0`` normalizes with the batch's fp32
+statistics (flax's biased variance, E[x^2] - E[x]^2) and updates the running
+ones as ``0.9 * old + 0.1 * batch``; spec augmentation follows it; each block
+draws per-sample drop-path keep scales ``m1``, ``m2`` = bernoulli(keep) /
+keep (rates ``linspace(0, drop_path_rate, n_blocks)``, no draw at rate 0).
+A ``fused_block`` stage then runs the train kernels (K7 forward, K8 and K9
+backward, ``ops.window_attn.fused_swin_block_train``); the layered path
+scales its two branches by the same ``m1``/``m2``, with K5 forward and K6
+backward as its attention where ``fused_attn`` holds. Every random draw
+comes from ``g``, in one order whatever the dispatch, so one seed gives every
+dispatch the same masks.
 """
 
 from __future__ import annotations
@@ -30,13 +42,14 @@ import torch
 import torch.nn.functional as F
 
 from zs_aac_tpu_torch.models.gpt2 import _ln
-from zs_aac_tpu_torch.ops.window_attn import (_window_partition, _window_reverse,
+from zs_aac_tpu_torch.ops.specaug import spec_augment
+from zs_aac_tpu_torch.ops.window_attn import (_window_partition, _window_reverse,  # noqa: F401
                                               build_window_bias, fused_swin_block,
-                                              fused_window_attention,
+                                              fused_swin_block_train, fused_window_attention,
                                               window_attention_plain)
 from zs_aac_tpu_torch.utils.device import resolve_device
 
-__all__ = ["HTSAT", "bicubic_resize_matrix"]
+__all__ = ["HTSAT", "bicubic_resize_matrix", "drop_path_scale"]
 
 _LN_EPS = 1e-6
 _BN_EPS = 1e-5
@@ -96,6 +109,12 @@ def _shift_attn_mask(h: int, w: int, window: int, shift: int) -> Optional[np.nda
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+def drop_path_scale(u, keep: float):
+    """Per-sample drop-path keep scales from uniforms ``u`` in [0, 1):
+    bernoulli(keep) / keep, the bernoulli being ``u < keep``."""
+    return (u < keep).float() / keep
+
+
 def _dense(x, p, dt):
     """flax ``nn.Dense(dtype=dt)``: x and the kernel in ``dt``, bias added."""
     y = x.to(dt) @ p["kernel"].to(dt)
@@ -117,14 +136,25 @@ def _window_attention(p, res, heads, window, shift, dt):
             w(p["proj"]["bias"]), bias)
 
 
-def _swin_block(p, x, res, heads, window, shift, dt, fused_attn, fused_block):
-    """``_SwinBlock`` in eval: kernel K3 for a ``fused_block`` stage; else LN1
-    -> window attention (K5 where ``fused_attn``, else the plain version) ->
-    residual -> LN2 -> fc1 -> GELU -> fc2 -> residual."""
+def _swin_block(p, x, res, heads, window, shift, dt, fused_attn, fused_block, train=False,
+                keep=None):
+    """``_SwinBlock``: for a ``fused_block`` stage kernel K3 (eval) or the
+    train kernels K7/K8/K9 (``train``); else LN1 -> window attention (K5/K6
+    where ``fused_attn``, else the plain version) -> residual -> LN2 -> fc1
+    -> GELU -> fc2 -> residual. ``keep`` = (m1, m2), the drop-path keep
+    scales of the two branches ([B] fp32), or None."""
     H, W = res
     B, L, C = x.shape
     attn = _window_attention(p["attn"], res, heads, window, shift, dt)
     w = lambda t: t.to(dt).contiguous()
+    if fused_block and train:
+        m1, m2 = keep if keep is not None else (torch.ones(B, device=x.device),) * 2
+        out = fused_swin_block_train(
+            x.reshape(B, H, W, C).to(dt).contiguous(), p["norm1"]["scale"],
+            p["norm1"]["bias"], *attn[:4], p["norm2"]["scale"], p["norm2"]["bias"],
+            w(p["fc1"]["kernel"]), w(p["fc1"]["bias"]), w(p["fc2"]["kernel"]),
+            w(p["fc2"]["bias"]), attn[4], m1, m2, window, heads, shift, _LN_EPS)
+        return out.reshape(B, L, C)
     if fused_block:
         out = fused_swin_block(
             x.reshape(B, H, W, C).to(dt).contiguous(), w(p["norm1"]["scale"]),
@@ -132,11 +162,13 @@ def _swin_block(p, x, res, heads, window, shift, dt, fused_attn, fused_block):
             w(p["fc1"]["kernel"]), w(p["fc1"]["bias"]), w(p["fc2"]["kernel"]),
             w(p["fc2"]["bias"]), attn[4], window, heads, shift, _LN_EPS)
         return out.reshape(B, L, C)
+    m1, m2 = keep if keep is not None else (None, None)
+    scaled = lambda t, m: t if m is None else t * m.to(t.dtype)[:, None, None]
     h = _ln(x, p["norm1"], _LN_EPS).reshape(B, H, W, C).to(dt).contiguous()
     attend = fused_window_attention if fused_attn else window_attention_plain
-    x = x + attend(h, *attn, window, heads, shift).reshape(B, L, C)
+    x = x + scaled(attend(h, *attn, window, heads, shift).reshape(B, L, C), m1)
     h = _dense(_ln(x, p["norm2"], _LN_EPS), p["fc1"], dt)
-    return x + _dense(F.gelu(h), p["fc2"], dt)
+    return x + scaled(_dense(F.gelu(h), p["fc2"], dt), m2)
 
 
 def _patch_merging(p, x, res, dt):
@@ -272,19 +304,58 @@ class HTSAT:
         x = x.transpose(1, 2).reshape(B, target_F, fr, target_T // fr)
         return x.transpose(1, 2).reshape(B, fr * target_F, target_T // fr)
 
-    def apply(self, variables, spec, *, train: bool = False, return_dict: bool = False):
+    def _bn0(self, bn, stats, spec, train: bool):
+        """``bn0`` over the mel bins: running statistics in eval; in train the
+        batch's (fp32, biased variance as flax computes it) and the updated
+        running statistics."""
+        x = spec.float()
+        if not train:
+            y = ((x - stats["mean"].float()) * torch.rsqrt(stats["var"].float() + _BN_EPS)
+                 * bn["scale"].float() + bn["bias"].float())
+            return y.to(self.dtype), None
+        mean = x.mean(dim=(0, 1))
+        var = torch.clamp_min((x * x).mean(dim=(0, 1)) - mean * mean, 0.0)
+        y = (x - mean) * (torch.rsqrt(var + _BN_EPS) * bn["scale"].float()) + bn["bias"].float()
+        with torch.no_grad():
+            new = {"mean": 0.9 * stats["mean"] + 0.1 * mean.detach(),
+                   "var": 0.9 * stats["var"] + 0.1 * var.detach()}
+        return y.to(self.dtype), {"bn0": new}
+
+    def _keep_scales(self, generator, B: int, device):
+        """Per block: (m1, m2) drop-path keep scales [B] fp32, or None at rate 0."""
+        rates = np.linspace(0, self.drop_path_rate, sum(self.depths))
+        out = []
+        for rate in rates:
+            if rate == 0.0:
+                out.append(None)
+                continue
+            keep = 1.0 - float(rate)
+            draw = lambda: drop_path_scale(
+                torch.rand(B, generator=generator, device=generator.device), keep).to(device)
+            m1 = draw()
+            out.append((m1, draw()))
+        return out
+
+    def apply(self, variables, spec, *, train: bool = False, return_dict: bool = False,
+              generator: Optional[torch.Generator] = None):
         """``spec`` [B, T, F] log-mel -> the embedding [B, C_out] (or the dict
         of ``embedding``, ``fine_grained_embedding``, ``framewise_output``,
-        ``clipwise_output`` with ``return_dict``)."""
-        if train:
-            raise NotImplementedError("HTSAT training (spec augmentation, drop path) "
-                                      "waits for the training port (later slice)")
+        ``clipwise_output`` with ``return_dict``). With ``train`` it returns
+        ``(that, new_batch_stats)`` and takes its random draws (spec
+        augmentation, drop path) from ``generator``."""
         p, st = variables["params"], variables["batch_stats"]
         dt = self.dtype
-        bn, stats = p["bn0"], st["bn0"]
-        x = spec.float()
-        x = ((x - stats["mean"].float()) * torch.rsqrt(stats["var"].float() + _BN_EPS)
-             * bn["scale"].float() + bn["bias"].float()).to(dt)
+        x, new_stats = self._bn0(p["bn0"], st["bn0"], spec, train)
+        keeps = [None] * sum(self.depths)
+        if train:
+            needs_draws = self.spec_augmentation or self.drop_path_rate > 0
+            if needs_draws and generator is None:
+                raise ValueError("HTSAT train mode with spec augmentation or drop path "
+                                 "needs a torch.Generator")
+            if self.spec_augmentation:
+                x = spec_augment(x, generator)
+            if self.drop_path_rate > 0:
+                keeps = self._keep_scales(generator, x.shape[0], x.device)
         x = self._reshape_wav2img(x)                               # [B, S, S] fp32
         B, S, _ = x.shape
         ps, stride = self.patch_size, self.patch_stride
@@ -298,10 +369,10 @@ class HTSAT:
                              "bias": proj["bias"]}, dt)                # conv k=s=ps
         x = _ln(x, p["patch_norm"], _LN_EPS)
 
-        for i, j, dim, heads, res, window, shift in self._stages():
+        for k, (i, j, dim, heads, res, window, shift) in enumerate(self._stages()):
             x = _swin_block(p[f"layer{i}_block{j}"], x, res, heads, window, shift, dt,
                             self._stage_fused(i, self.fused_attn),
-                            self._stage_fused(i, self.fused_block))
+                            self._stage_fused(i, self.fused_block), train, keeps[k])
             if j == self.depths[i] - 1 and i < len(self.depths) - 1:
                 x = _patch_merging(p[f"downsample{i}"], x, res, dt)
 
@@ -314,7 +385,7 @@ class HTSAT:
         x = x.reshape(B, C, SF // cfb, cfb, ST).permute(0, 1, 3, 2, 4).reshape(B, C, cfb, -1)
         embedding = x.reshape(B, C, -1).mean(dim=-1)
         if not return_dict:
-            return embedding
+            return (embedding, new_stats) if train else embedding
 
         rep = 8 * self.patch_stride
         fine = torch.repeat_interleave(x.mean(dim=2).transpose(1, 2), rep, dim=1)
@@ -324,5 +395,6 @@ class HTSAT:
         logits = logits[:, :, 0].transpose(1, 2)                    # [B, T', classes]
         framewise = torch.repeat_interleave(torch.sigmoid(logits), rep, dim=1)
         clipwise = torch.sigmoid(logits.mean(dim=1))
-        return {"embedding": embedding, "fine_grained_embedding": fine,
-                "framewise_output": framewise, "clipwise_output": clipwise}
+        out = {"embedding": embedding, "fine_grained_embedding": fine,
+               "framewise_output": framewise, "clipwise_output": clipwise}
+        return (out, new_stats) if train else out

@@ -24,7 +24,6 @@ Run (``--config`` needs ``pyyaml``):
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import pickle
@@ -36,45 +35,14 @@ import torch
 from zs_aac_tpu_torch.data.audio_io import load_audio, pad_or_truncate
 from zs_aac_tpu_torch.data.banks import write_bank_list
 from zs_aac_tpu_torch.data.text_transform import text_preprocess
+from zs_aac_tpu_torch.train.pretrain import build_ase_from_config
 
 __all__ = [
-    "build_ase_from_config",
     "load_ase_encoders",
     "extract_audio_text_bank",
     "extract_text_bank",
     "main",
 ]
-
-
-def build_ase_from_config(config: dict):
-    """``(ASE, ASEConfig)`` from an extract/pretrain config (the JAX
-    package's ``train/pretrain.py::build_ase_from_config``). The port also
-    reads an optional ``htsat_kwargs`` mapping of HTSAT geometry overrides."""
-    from zs_aac_tpu_torch.models.ase import ASE, ASEConfig
-
-    enc_args = config.get("audio_encoder_args", {})
-    if enc_args.get("type", "cnn") == "transformer":
-        encoder = "htsat"
-    else:
-        encoder = "cnn14" if enc_args.get("model", "Cnn14") == "Cnn14" else "resnet38"
-    fused = config.get("fused_attn", False)
-    htsat_kwargs = config.get("htsat_kwargs")
-    cfg = ASEConfig(
-        embed_size=config.get("embed_size", 1024),
-        temp=config.get("temp", 0.07),
-        embed_regularization=config.get("embed_regularization", True),
-        audio_encoder=encoder,
-        text_model=config.get("text_encoder_args", {}).get("type", "bert-base-uncased"),
-        spec_augmentation=config.get("training", {}).get("spec_augmentation", True),
-        audio_channels=tuple(config["audio_channels"]) if config.get("audio_channels")
-        else None,
-        htsat_kwargs=tuple((k, tuple(v) if isinstance(v, list) else v)
-                           for k, v in htsat_kwargs.items()) if htsat_kwargs else None,
-        fused_attn=fused,
-        fused_block=config.get("fused_block", fused),
-        dtype=torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else torch.float32,
-    )
-    return ASE(cfg), cfg
 
 
 def load_ase_encoders(config: dict, ckpt: Optional[str] = None, device="cuda"):
@@ -83,7 +51,7 @@ def load_ase_encoders(config: dict, ckpt: Optional[str] = None, device="cuda"):
     ``encode_audio.pcm(pcm, sr_in, target_len)`` takes int16 PCM at the
     files' native rate and resamples on the device."""
     from zs_aac_tpu_torch.data.bert_tokenizer import WordPieceTokenizer
-    from zs_aac_tpu_torch.models.ase import ASE, init_ase
+    from zs_aac_tpu_torch.models.ase import init_ase
     from zs_aac_tpu_torch.models.convert import cast_floating, convert_ase
     from zs_aac_tpu_torch.ops.logmel import LogMelConfig
     from zs_aac_tpu_torch.ops.resample import resample_poly_device
@@ -92,7 +60,7 @@ def load_ase_encoders(config: dict, ckpt: Optional[str] = None, device="cuda"):
 
     dev = resolve_device(device)
     tokenizer = WordPieceTokenizer.from_file(config["text_encoder_args"]["vocab"])
-    ase, cfg = build_ase_from_config(config)
+    ase, cfg = build_ase_from_config(config, device=dev)
     mel_cfg = LogMelConfig.from_dict(config["audio_args"])
     path = ckpt or config.get("pretrain_path")
     if path and os.path.isdir(path):
@@ -105,11 +73,6 @@ def load_ase_encoders(config: dict, ckpt: Optional[str] = None, device="cuda"):
         variables = init_ase(cfg, seed=0, device=dev)
     if cfg.dtype == torch.bfloat16:
         variables = cast_floating(variables, torch.bfloat16)
-    if dev.type == "cuda" and config.get("fused_attn", True):
-        # the card's dispatch: K3 in every stage but the last, K5 there
-        n_stages = len(ase.audio_enc.depths)
-        ase = ASE(dataclasses.replace(cfg, fused_attn=True,
-                                      fused_block=tuple(range(n_stages - 1))))
     enc_a, enc_t = make_encode_fns(ase, mel_cfg, device=dev)
 
     def encode_audio(waves: np.ndarray) -> np.ndarray:

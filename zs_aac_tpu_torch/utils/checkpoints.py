@@ -1,5 +1,17 @@
-"""Read the ``best.pth`` / ``last.pth`` parameter snapshots of the JAX
-package (flax ``serialization.to_bytes``: msgpack) without flax or msgpack.
+"""Checkpoints: the port's train states, and the JAX package's parameter
+snapshots.
+
+Train states (``save_train_state``, ``restore_train_state``,
+``restore_model_only``) are the port's own format: one ``torch.save`` file
+of ``{"params", "batch_stats", "opt_state", "step"}`` (CPU tensors in plain
+dicts and tuples, read back with ``weights_only=True``), with the JAX
+package's semantics: a full restore resumes params, optimizer and step; a
+model-only restore warm-starts params and batch statistics and keeps the
+fresh optimizer (the reference's ``pretrain_path`` load). The JAX package's
+orbax train-state directories are not read.
+
+The JAX package's ``best.pth`` / ``last.pth`` parameter snapshots (flax
+``serialization.to_bytes``: msgpack) are read without flax or msgpack.
 
 flax writes the state dict as msgpack maps (lists become maps keyed "0",
 "1", ...), arrays as ext type 1 holding a msgpack ``(shape, dtype name,
@@ -12,11 +24,69 @@ checkpoint of this slice's models has one, and such a leaf stays a map.)
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import struct
 
 import numpy as np
+import torch
 
-__all__ = ["msgpack_unpackb", "load_params"]
+__all__ = ["msgpack_unpackb", "load_params", "save_train_state", "restore_train_state",
+           "restore_model_only"]
+
+
+def _cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_cpu(v) for v in tree)
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def _like(template, loaded):
+    """``loaded`` with each tensor moved to the device of the template's
+    tensor at the same place (and the template's container types)."""
+    if isinstance(template, dict):
+        return {k: _like(template[k], loaded[k]) for k in template}
+    if isinstance(template, (tuple, list)):
+        return type(template)(_like(t, v) for t, v in zip(template, loaded))
+    if isinstance(template, torch.Tensor):
+        return loaded.to(template.device)
+    return loaded
+
+
+def save_train_state(path: str, state) -> None:
+    """The whole train state to one file (written to a temporary name, then
+    renamed, so a reader never sees half a checkpoint)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {"params": _cpu(state.params), "batch_stats": _cpu(state.batch_stats),
+               "opt_state": _cpu(state.opt_state), "step": int(state.step)}
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _load(path: str):
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_train_state(path: str, template):
+    """Full resume: params, batch stats, optimizer state and step, placed as
+    in ``template``."""
+    payload = _load(path)
+    return dataclasses.replace(
+        template, params=_like(template.params, payload["params"]),
+        batch_stats=_like(template.batch_stats, payload["batch_stats"]),
+        opt_state=_like(template.opt_state, payload["opt_state"]), step=payload["step"])
+
+
+def restore_model_only(path: str, template):
+    """Warm start: params and batch stats from ``path``; the template's
+    (fresh) optimizer state and step stay."""
+    payload = _load(path)
+    return dataclasses.replace(
+        template, params=_like(template.params, payload["params"]),
+        batch_stats=_like(template.batch_stats, payload["batch_stats"]))
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 

@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles at first use into
-``zs_aac_tpu_torch/build/lib<name>_<hash>.so`` (the hash is of the source,
-so an edited source rebuilds). The sources expose plain C functions: the
-wrappers pass tensor pointers as ``c_void_p`` and PyTorch's current stream,
-and each C function returns ``cudaGetLastError()``.
+``zs_aac_tpu_torch/build/lib<name>_<hash>.so`` (the hash is of the source
+and the shared ``csrc/*.cuh`` headers, so an edited source rebuilds). The
+sources expose plain C functions: the wrappers pass tensor pointers as
+``c_void_p`` and PyTorch's current stream, and each C function returns
+``cudaGetLastError()``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD / f"lib{name}_{digest}.so"
 
