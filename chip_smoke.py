@@ -24,8 +24,9 @@ which must pass:
 5. K2 (log-mel) against its plain version at B=64 x 10 s and at edge shapes
    (B=1, odd T, T near n_fft, silence, a pure tone);
 6. K3 (whole Swin block) against its plain version at HTSAT's three stage
-   shapes, shifted and unshifted, fp32 and bf16, and at the stage-4 shape in
-   bf16 (the function of the TPU's streamed kernel K4); K5 (window
+   shapes, shifted and unshifted, fp32 (the FMA kernel) and bf16 (the
+   tensor-core kernels; which of the two ran is checked), and at the stage-4
+   shape in bf16 (the function of the TPU's streamed kernel K4); K5 (window
    attention) at the stage-4 shape and a shifted stage-1 shape; a refused
    launch (head dim 96) must raise;
 7. exact embeddings on learned weights: the port's ``load_ase_encoders`` +
@@ -35,7 +36,7 @@ which must pass:
    seeded random weights, bf16): B=64 ten-second waves -> K2 -> HTSAT
    (K3 in stages 1-3, K5 + PyTorch MLP in stage 4) -> projection ->
    [64, 1024] L2-normalized embeddings. Launch counts per encode are checked
-   (K2 1, K3 10, K5 2), the embeddings are compared row by row with the
+   (K2 1, K3 10, K5 2, all 12 through the tensor-core kernels), the embeddings are compared row by row with the
    all-plain path's (cosine), clips/s and BERT-base texts/s are measured
    with CUDA events, each kernel's time per call is set beside its bound,
    and a ``torch.profiler`` table of one encode is printed;
@@ -56,7 +57,8 @@ which must pass:
     embed 1024, bf16 over fp32 parameters, B=64 ten-second waves, Adam lr
     5e-5 cosine, clip 2, spec augmentation and drop path 0.1): one warm-up
     and 5 timed steps on one batch, launch counts per step checked (K2 1,
-    K7/K8/K9 10 each, K5/K6 2 each), the loss on the batch with fixed random
+    K7/K8/K9 10 each, K5/K6 2 each; K7's and K5's 12 forward launches all
+    through the tensor-core kernels), the loss on the batch with fixed random
     draws lower after the steps, per-leaf gradient cosine >= 0.99 and norm
     ratio within 5% of 1 against the all-plain path, samples/s, peak memory, each train kernel's time per
     call beside its bound and a ``torch.profiler`` table of one step.
@@ -459,6 +461,8 @@ def phase_window_vs_plain():
 
     g = torch.Generator(device="cuda").manual_seed(5)
     worst = {"k3": 0.0, "k4": 0.0, "k5": 0.0}
+    for fn in (fused_swin_block, fused_window_attention):
+        fn.launches = fn.tc_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         for H, C, heads in STAGES:
@@ -497,6 +501,10 @@ def phase_window_vs_plain():
         check(err <= tol, f"K5 disagrees with its plain version ({err})")
         if dtype == torch.bfloat16 and H == 8:
             worst["k5"] = err
+    counts = [(fn.launches, fn.tc_launches) for fn in (fused_swin_block, fused_window_attention)]
+    print(f"[k3/k5] launches (all, tensor-core): K3 {counts[0]}, K5 {counts[1]} (bf16 at "
+          "HTSAT's shapes takes the tensor-core kernels, fp32 the FMA kernel)", flush=True)
+    check(counts == [(13, 7), (4, 2)], f"K3/K5 instantiations off the plan: {counts}")
     x, w, bias = _window_case(2, 8, 192, 2, 8, torch.float32, g)   # head dim 96
     try:
         fused_window_attention(x, *w[2:6], bias, 8, 2, 0)
@@ -573,14 +581,16 @@ def phase_encode_full_width():
     torch.cuda.synchronize()
     kernels = {"K2": log_mel, "K3": fused_swin_block, "K5": fused_window_attention}
     for fn in kernels.values():
-        fn.launches = 0
+        fn.launches = fn.tc_launches = 0
     emb = enc_a(variables, waves)               # the main path, counted
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
+    tc = {k: kernels[k].tc_launches for k in ("K3", "K5")}
     print(f"[encode] B={B} 10 s clips, bf16, seeded weights: embeddings "
           f"{tuple(emb.shape)} {emb.dtype}; launches per encode {launches} "
-          "(expected K2 1, K3 10, K5 2)", flush=True)
+          f"(expected K2 1, K3 10, K5 2), through the tensor-core kernels {tc}", flush=True)
     check(launches == {"K2": 1, "K3": 10, "K5": 2}, "encode launch counts off the main path's")
+    check(tc == {"K3": 10, "K5": 2}, "an encode launch of K3 or K5 missed the tensor-core kernels")
     check(tuple(emb.shape) == (B, 1024) and bool(torch.isfinite(emb.float()).all()),
           "encode output is not a finite [64, 1024]")
     norms = emb.float().norm(dim=-1)
@@ -666,8 +676,13 @@ def phase_encode_full_width():
         enc_a(variables, waves)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
-    print(f"[profile] one encode under torch.profiler: wall {pwall * 1e3:.2f} ms", flush=True)
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
+    events = prof.key_averages()
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+    print(f"[profile] one encode under torch.profiler: wall {pwall * 1e3:.2f} ms, device time "
+          f"{dev_ms:.2f} ms (device idle {1 - dev_ms / (pwall * 1e3):.1%} of the wall)",
+          flush=True)
+    print(events.table(sort_by="cuda_time_total", row_limit=15), flush=True)
     return launches, stats
 
 
@@ -1077,7 +1092,7 @@ def phase_train_full_width():
     kernels = {"K2": log_mel, "K5": wa.fused_window_attention, "K6": wa.window_attention_bwd,
                "K7": wa.fused_swin_block_train, "K8": wa.mlp_bwd, "K9": wa.attn_ln1_bwd}
     for fn in kernels.values():
-        fn.launches = 0
+        fn.launches = fn.tc_launches = 0
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     losses = []
@@ -1092,12 +1107,14 @@ def phase_train_full_width():
     step_ms = start.elapsed_time(end) / steps
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per_step = {k: fn.launches / steps for k, fn in kernels.items()}
+    tc = {k: kernels[k].tc_launches / steps for k in ("K5", "K7")}
     losses = [float(loss0)] + [float(v) for v in losses]
     print(f"[train] B={B} 10 s clips + {L} tokens, bf16, seeded weights: losses {losses}; "
-          f"launches per step {per_step} (expected K2 1, K5 2, K6 2, K7 10, K8 10, K9 10)",
-          flush=True)
+          f"launches per step {per_step} (expected K2 1, K5 2, K6 2, K7 10, K8 10, K9 10), "
+          f"forward launches through the tensor-core kernels {tc}", flush=True)
     check(per_step == {"K2": 1, "K5": 2, "K6": 2, "K7": 10, "K8": 10, "K9": 10},
           "train-step launch counts off the main path's")
+    check(tc == {"K5": 2, "K7": 10}, "a forward launch of K7 or K5 missed the tensor-core kernels")
     after = fixed(state)
     print(f"[train] loss on the batch with fixed draws: {before:.6f} before the warm-up, "
           f"{after:.6f} after the 5 timed steps", flush=True)

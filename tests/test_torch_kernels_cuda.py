@@ -152,6 +152,45 @@ def _tol(ref):
     return 2.0 ** -6 * ref.float().abs().max().item()
 
 
+# bf16 at HTSAT's stage shapes: the tensor-core kernels. An odd batch (an odd
+# count of windows for the blocks that take two), shift 4 at stages 2 and 3,
+# and the stage-4 shape, whose heads and columns are split over blocks.
+TC_WINDOW_CASES = [(3, 64, 96, 4, 0), (3, 64, 96, 4, 4), (3, 32, 192, 8, 4), (1, 32, 192, 8, 0),
+                   (3, 16, 384, 16, 4), (3, 8, 768, 32, 0), (1, 8, 96, 4, 0), (1, 8, 192, 8, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,heads,shift", TC_WINDOW_CASES)
+def test_k3_k5_tensor_core_kernels_match_plain(B, H, C, heads, shift):
+    _need_cuda()
+    x, w, bias = _window_inputs(B, H, C, heads, torch.bfloat16, seed=C + B + shift)
+    fns = (wa.fused_swin_block, wa.fused_window_attention)
+    n = [(fn.launches, fn.tc_launches) for fn in fns]
+    k3 = wa.fused_swin_block(x, *w, bias, 8, heads, shift, 1e-6)
+    k5 = wa.fused_window_attention(x, *w[2:6], bias, 8, heads, shift)
+    torch.cuda.synchronize()
+    assert [(fn.launches, fn.tc_launches) for fn in fns] == [(a + 1, b + 1) for a, b in n]
+    for got, want in ((k3, wa.swin_block_plain(x, *w, bias, 8, heads, shift, 1e-6)),
+                      (k5, wa.window_attention_plain(x, *w[2:6], bias, 8, heads, shift))):
+        torch.testing.assert_close(got.float(), want.float(), atol=_tol(want), rtol=0)
+
+
+@pytest.mark.cuda
+def test_only_htsat_bf16_shapes_take_the_tensor_core_kernels():
+    """fp32 and the 4x4-window shapes launch the FMA kernel: the launch
+    count moves, the tensor-core count does not."""
+    _need_cuda()
+    for B, H, C, heads, window, dtype in ((2, 64, 96, 4, 8, torch.float32),
+                                          (2, 16, 32, 4, 4, torch.bfloat16),
+                                          (2, 16, 128, 4, 8, torch.bfloat16)):
+        x, w, bias = _window_inputs(B, H, C, heads, dtype, window=window)
+        n = (wa.fused_swin_block.launches, wa.fused_swin_block.tc_launches)
+        got = wa.fused_swin_block(x, *w, bias, window, heads, 0, 1e-6)
+        want = wa.swin_block_plain(x, *w, bias, window, heads, 0, 1e-6)
+        assert (wa.fused_swin_block.launches, wa.fused_swin_block.tc_launches) == (n[0] + 1, n[1])
+        torch.testing.assert_close(got.float(), want.float(), atol=_tol(want), rtol=0)
+
+
 @pytest.mark.cuda
 def test_k3_covers_the_streamed_block():
     """Stage 4 (8x8x768, 32 heads, hidden 3072) in bf16, and an MLP far wider
@@ -273,6 +312,40 @@ def test_k7_k8_k9_match_plain(B, H, C, heads, window, shift, dtype):
         _check(name, got, want, w32)
     # dropped rows: dy = g where m2 = 0, and dx = dy where m1 = 0, exactly
     assert torch.equal(k8[0][0], g[0]) and torch.equal(k9[0][1], dy[1])
+
+
+# K7 in bf16 at HTSAT's stage shapes (the tensor-core kernels): an odd
+# batch, shift 4, the stage-4 shape, and keep scales that hold zeros (a
+# dropped sample's rows pass x, then y, through unchanged).
+TC_TRAIN_CASES = [(3, 64, 96, 4, 4, (1.25, 0.0, 1.0), (0.0, 1.25, 1.0)),
+                  (3, 32, 192, 8, 4, (0.0, 0.0, 1.25), (1.25, 0.0, 0.0)),
+                  (2, 16, 384, 16, 4, (1.0, 0.0), (0.0, 1.0)),
+                  (3, 16, 384, 16, 0, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0)),
+                  (3, 8, 768, 32, 0, (1.25, 0.0, 1.0), (0.0, 1.25, 1.25))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,heads,shift,m1,m2", TC_TRAIN_CASES)
+def test_k7_tensor_core_kernels_match_plain(B, H, C, heads, shift, m1, m2):
+    _need_cuda()
+    x, w, bias = _window_inputs(B, H, C, heads, torch.bfloat16, seed=C + shift)
+    m1, m2 = torch.tensor(m1, device="cuda"), torch.tensor(m2, device="cuda")
+    cfg = (8, heads, shift, 1e-6)
+    fn = wa.fused_swin_block_train
+    n = (fn.launches, fn.tc_launches)
+    out, y = wa._launch(fn, True, x, *w[2:6], bias, 8, heads, shift,
+                        ln=(w[0], w[1], w[6], w[7]), mlp_w=tuple(w[8:]), eps=1e-6, keep=(m1, m2))
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches) == (n[0] + 1, n[1] + 1)
+    out_ref, y_ref = wa.swin_block_train_plain(x, *w, bias, m1, m2, *cfg)
+    o32, y32 = wa.swin_block_train_plain(*_f32([x] + w), bias, m1, m2, *cfg)
+    _check("out", out, out_ref, o32)
+    _check("y", y, y_ref, y32)
+    for i in range(B):
+        if m1[i] == 0:
+            assert torch.equal(y[i], x[i])
+        if m2[i] == 0:
+            assert torch.equal(out[i], y[i])
 
 
 @pytest.mark.cuda

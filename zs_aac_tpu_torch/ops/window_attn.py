@@ -32,9 +32,12 @@ what a kernel refuses, never falling back):
 - ``fused_swin_block_train``: forward K7, backward K8 (``mlp_bwd``) then K9
   (``attn_ln1_bwd``); zero cotangents for ``m1``/``m2``.
 
-K3, K5 and K7 are ``csrc/window_attn.cu`` (one template); K6, K8 and K9
+K3, K5 and K7 are ``csrc/window_attn.cu``, in two instantiations chosen by
+shape (``window_kernel_plan``): tensor-core kernels for bf16 at HTSAT's
+shapes, the FMA kernel for fp32 and every other shape. K6, K8 and K9 are
 ``csrc/swin_train.cu``. Each kernel's wrapper counts its launches in
-``.launches``.
+``.launches``, and K3/K5/K7's those that took the tensor-core kernels in
+``.tc_launches``.
 
 Numerics (the JAX kernels' rounding points): in the activation dtype ``dt``
 these round -- qkv, q times the (``dt``-rounded) scale, the probabilities,
@@ -68,6 +71,7 @@ __all__ = [
     "window_attention_bwd",
     "mlp_bwd",
     "attn_ln1_bwd",
+    "window_kernel_plan",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,6 +79,8 @@ _MAX_HEAD_DIM = 64     # the kernel's per-head buffers are sized for d <= 64
 _MAX_TOKENS = 64       # tokens per window (N = window**2)
 _HIDDEN_CHUNK = 64     # hidden columns per MLP chunk (kChunk in the kernel)
 _WGRAD_BLOCKS = 528    # split-token weight-gradient blocks to aim for (4 per SM)
+_TC_HEAD_DIM = 24      # the tensor-core kernels' head dim (every HTSAT stage)
+_TC_GROUP = 96         # channels per warp column group there: 4 heads
 
 
 def build_window_bias(rpb, mask, nH: int, nW: int):
@@ -328,6 +334,10 @@ def _lib():
                                     + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
                                     + [ctypes.c_void_p] * 4)
         lib.swin_window.restype = ctypes.c_int
+        lib.swin_window_tc.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
+                                       + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+                                       + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+        lib.swin_window_tc.restype = ctypes.c_int
         lib.swin_window_smem.argtypes = [ctypes.c_int] * 6
         lib.swin_window_smem.restype = ctypes.c_int
         lib.swin_window_smem_limit.argtypes = []
@@ -350,6 +360,45 @@ def _train_lib():
                    lib.swin_mlp_bwd, lib.swin_wgrad, lib.swin_reduce):
             fn.restype = ctypes.c_int
     return lib
+
+
+def _check_window(name, dtype, N: int, d: int):
+    """What every window kernel (FMA, tensor-core, backward) asks of the
+    dtype, the tokens per window and the head dim; raises otherwise."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name}: unsupported activation dtype {dtype}")
+    if N % 8 or N > _MAX_TOKENS:
+        raise ValueError(f"{name}: {N} tokens per window; the kernel takes a "
+                         f"multiple of 8 up to {_MAX_TOKENS}")
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} > {_MAX_HEAD_DIM}")
+
+
+def window_kernel_plan(dtype, N: int, C: int, d: int, hidden=None):
+    """Which instantiation of ``csrc/window_attn.cu`` a launch of K3, K5 or K7
+    takes, from the activation dtype, the tokens per window ``N``, the
+    channels ``C``, the head dim ``d`` and, with an MLP, its hidden width.
+
+    - ``("tc", wpb, split)``: the tensor-core kernels. bf16, N = 64 (8x8
+      windows), d = 24 and C = 96, 192, 384 or 768 (HTSAT's four stages), the
+      hidden width a multiple of 64 per 96 channels in flight. ``wpb`` is
+      the windows per block (2 at C <= 192, else 1); ``split`` is true at C =
+      768, where the heads and the output columns of one window are split
+      over two blocks in a chain of kernels.
+    - ``("fma",)``: the FMA kernel. fp32 always (TF32 would break the fp32
+      fixtures' tolerances), and bf16 at any other shape it takes: N a
+      multiple of 8 up to 64, d up to 64 (and enough shared memory, which
+      only the card can say: ``_pick_rows`` raises there).
+
+    Raises ``TypeError`` or ``ValueError`` for what neither takes. A rule on
+    shapes alone: a CUDA tensor launches the planned kernel or raises."""
+    _check_window("window attention", dtype, N, d)
+    groups = C // _TC_GROUP
+    if (dtype == torch.bfloat16 and N == 64 and d == _TC_HEAD_DIM and C % _TC_GROUP == 0
+            and groups in (1, 2, 4, 8)
+            and (hidden is None or hidden % (64 * min(groups, 4)) == 0)):
+        return ("tc", 2 if groups <= 2 else 1, groups == 8)
+    return ("fma",)
 
 
 def _pick_rows(lib, itemsize: int, N: int, C: int, d: int, mlp: bool):
@@ -382,20 +431,14 @@ def _geometry(name, x, window, num_heads, shift):
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be [B, H, W, C], got {tuple(x.shape)}")
     B, H, W, C = x.shape
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"{name}: unsupported activation dtype {x.dtype}")
     w = window
     if w <= 0 or H % w or W % w:
         raise ValueError(f"{name}: {H}x{W} is not a grid of {w}x{w} windows")
     N = w * w
-    if N % 8 or N > _MAX_TOKENS:
-        raise ValueError(f"{name}: {N} tokens per window; the kernel takes a "
-                         f"multiple of 8 up to {_MAX_TOKENS}")
     if num_heads <= 0 or C % num_heads:
         raise ValueError(f"{name}: {C} channels do not split into {num_heads} heads")
     d = C // num_heads
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} > {_MAX_HEAD_DIM}")
+    _check_window(name, x.dtype, N, d)
     if not 0 <= shift < min(H, W):
         raise ValueError(f"{name}: shift {shift} outside [0, {min(H, W)})")
     return B, H, W, C, N, d
@@ -405,10 +448,12 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch(name, mlp, x, qkv_w, qkv_b, proj_w, proj_b, bias, window, num_heads, shift,
+def _launch(fn, mlp, x, qkv_w, qkv_b, proj_w, proj_b, bias, window, num_heads, shift,
             ln=None, mlp_w=None, eps=0.0, keep=None):
-    """K5 (no MLP), K3 (MLP) or K7 (MLP and ``keep`` = (m1, m2)): returns
-    ``out`` (and ``y`` for K7)."""
+    """Launch K5 (no MLP), K3 (MLP) or K7 (MLP and ``keep`` = (m1, m2)) for the
+    wrapper ``fn``, whose counts it raises: returns ``out`` (and ``y`` for
+    K7)."""
+    name = fn.__name__
     B, H, W, C, N, d = _geometry(name, x, window, num_heads, shift)
     dt = x.dtype
     nH, nW = H // window, W // window
@@ -424,22 +469,40 @@ def _launch(name, mlp, x, qkv_w, qkv_b, proj_w, proj_b, bias, window, num_heads,
     if keep is not None:
         shapes += [(n, t, (B,), torch.float32) for n, t in zip(("m1", "m2"), keep)]
     _check(name, shapes, x.device)
+    plan = window_kernel_plan(dt, N, C, d, hidden if mlp else None)
     lib = _lib()
-    rows, _ = _pick_rows(lib, x.element_size(), N, C, d, mlp)
     out = torch.empty_like(x)
     y = torch.empty_like(x) if keep is not None else None
     ptr = lambda t: None if t is None else t.data_ptr()
     ln1_s, ln1_b, ln2_s, ln2_b = ln if mlp else (None,) * 4
     fc1_w, fc1_b, fc2_w, fc2_b = mlp_w if mlp else (None,) * 4
     m1, m2 = keep if keep is not None else (None, None)
-    rc = lib.swin_window(
-        _DTYPES[dt], int(mlp), x.data_ptr(), out.data_ptr(), ptr(ln1_s), ptr(ln1_b),
-        qkv_w.data_ptr(), qkv_b.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
-        ptr(ln2_s), ptr(ln2_b), ptr(fc1_w), ptr(fc1_b), ptr(fc2_w), ptr(fc2_b),
-        bias.data_ptr(), B, H, W, C, num_heads, window, shift, hidden, rows, _HIDDEN_CHUNK,
-        float(eps), _scale(d, dt), ptr(y), ptr(m1), ptr(m2), _stream(x))
+    weights = (ptr(ln1_s), ptr(ln1_b), qkv_w.data_ptr(), qkv_b.data_ptr(), proj_w.data_ptr(),
+               proj_b.data_ptr(), ptr(ln2_s), ptr(ln2_b), ptr(fc1_w), ptr(fc1_b), ptr(fc2_w),
+               ptr(fc2_b), bias.data_ptr())
+    if plan[0] == "tc":
+        _, wpb, split = plan
+        for n, t, _, _ in shapes:
+            if t.data_ptr() % 16:   # 16-byte vector loads and cp.async
+                raise ValueError(f"{name}: {n} must be 16-byte aligned")
+        # split: o passes through a window-major scratch and the residual
+        # through y (a scratch of its own outside train mode)
+        scratch = torch.empty_like(x) if split else None
+        y_buf = torch.empty_like(x) if split and mlp and y is None else y
+        rc = lib.swin_window_tc(
+            int(mlp), x.data_ptr(), out.data_ptr(), *weights, B, H, W, C, num_heads, window,
+            shift, hidden, float(eps), _scale(d, dt), ptr(y_buf), ptr(m1), ptr(m2),
+            ptr(scratch), wpb, _stream(x))
+    else:
+        rows, _ = _pick_rows(lib, x.element_size(), N, C, d, mlp)
+        rc = lib.swin_window(
+            _DTYPES[dt], int(mlp), x.data_ptr(), out.data_ptr(), *weights, B, H, W, C,
+            num_heads, window, shift, hidden, rows, _HIDDEN_CHUNK, float(eps), _scale(d, dt),
+            ptr(y), ptr(m1), ptr(m2), _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    fn.launches += 1
+    fn.tc_launches += plan[0] == "tc"
     return out if keep is None else (out, y)
 
 
@@ -624,9 +687,8 @@ class _WindowAttention(torch.autograd.Function):
             out = window_attention_plain(x, qkv_w, qkv_b, proj_w, proj_b, bias, window,
                                          num_heads, shift)
         else:
-            out = _launch("fused_window_attention", False, x, qkv_w, qkv_b, proj_w, proj_b,
+            out = _launch(fused_window_attention, False, x, qkv_w, qkv_b, proj_w, proj_b,
                           bias, window, num_heads, shift)
-            fused_window_attention.launches += 1
         ctx.save_for_backward(x, qkv_w, qkv_b, proj_w, proj_b, bias)
         ctx.cfg = (window, num_heads, shift)
         return out
@@ -646,10 +708,9 @@ class _SwinBlock(torch.autograd.Function):
         else:
             (ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b,
              fc1_w, fc1_b, fc2_w, fc2_b, bias) = weights
-            out = _launch("fused_swin_block", True, x, qkv_w, qkv_b, proj_w, proj_b, bias,
+            out = _launch(fused_swin_block, True, x, qkv_w, qkv_b, proj_w, proj_b, bias,
                           *cfg[:3], ln=(ln1_s, ln1_b, ln2_s, ln2_b),
                           mlp_w=(fc1_w, fc1_b, fc2_w, fc2_b), eps=cfg[3])
-            fused_swin_block.launches += 1
         ctx.save_for_backward(x, *weights)
         ctx.cfg = cfg
         return out
@@ -674,12 +735,11 @@ class _SwinBlockTrain(torch.autograd.Function):
                                             m2, window, num_heads, shift, eps)
         else:
             w = lambda t: t.to(dt).contiguous()
-            out, y = _launch("fused_swin_block_train", True, x, w(qkv_w), w(qkv_b), w(proj_w),
+            out, y = _launch(fused_swin_block_train, True, x, w(qkv_w), w(qkv_b), w(proj_w),
                              w(proj_b), bias, window, num_heads, shift,
                              ln=tuple(map(w, (ln1_s, ln1_b, ln2_s, ln2_b))),
                              mlp_w=tuple(map(w, (fc1_w, fc1_b, fc2_w, fc2_b))), eps=eps,
                              keep=(m1.float().contiguous(), m2.float().contiguous()))
-            fused_swin_block_train.launches += 1
         ctx.save_for_backward(x, y, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, ln2_s, ln2_b, fc1_w,
                               fc1_b, fc2_w, bias, m1, m2)
         ctx.cfg = (window, num_heads, shift, eps)
@@ -741,3 +801,5 @@ def fused_swin_block_train(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
 for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train,
             window_attention_bwd, mlp_bwd, attn_ln1_bwd):
     _fn.launches = 0
+for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train):
+    _fn.tc_launches = 0
