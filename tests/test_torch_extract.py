@@ -252,6 +252,76 @@ def test_text_banks_match_jax(tmp_path, corpus):
             np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]))
 
 
+def _save_as_train_state(dataset, path):
+    """The dataset's reference-layout weights as a train state file, written
+    as the port's training drivers write ``best_model.ckpt``."""
+    from zs_aac_tpu_torch.models.convert import convert_ase
+    from zs_aac_tpu_torch.train.contrastive import create_ase_state
+    from zs_aac_tpu_torch.train.optim import cosine_lr, get_optimizer
+    from zs_aac_tpu_torch.train.pretrain import build_ase_from_config
+    from zs_aac_tpu_torch.utils.checkpoints import save_train_state
+
+    ase, cfg = build_ase_from_config(dataset["config"], device="cpu")
+    variables = convert_ase(dataset["sd"], cfg, device="cpu")
+    state = create_ase_state(0, ase, get_optimizer(cosine_lr(1e-3, 0, 4), "adam"),
+                             device="cpu", variables=variables)
+    save_train_state(path, state)
+    return variables
+
+
+def test_bank_from_train_state_equals_bank_from_reference_checkpoint(dataset, tmp_path):
+    """``load_ase_encoders`` reads what the training drivers write: the same
+    weights saved with ``save_train_state`` give the bank that ``ase.pt``
+    gives, bit for bit."""
+    config = dataset["config"]
+    ckpt = str(tmp_path / "best_model.ckpt")
+    _save_as_train_state(dataset, ckpt)
+    assert set(torch.load(ckpt, map_location="cpu", weights_only=True)) == {
+        "params", "batch_stats", "opt_state", "step"}
+    banks = []
+    for path in (ckpt, dataset["ckpt"]):
+        ea, et = port_extract.load_ase_encoders(config, path, device="cpu")
+        banks.append(port_extract.extract_audio_text_bank(
+            ea, et, dataset["root"], True, config["audio_args"], batch_size=3))
+    assert len(banks[0]) == 10
+    assert_banks_match(banks[0], banks[1], tol=0)
+
+
+@pytest.mark.parametrize("wrap", ["bare", "model"])
+def test_load_ase_variables_reads_both_layouts(dataset, tmp_path, wrap):
+    """One reader for a train state and for a reference-layout file (bare or
+    under ``"model"``): the same variables from each, on the device asked
+    for, and nothing of the optimizer."""
+    from zs_aac_tpu_torch.train.pretrain import build_ase_from_config
+    from zs_aac_tpu_torch.utils.checkpoints import load_ase_variables
+
+    _, cfg = build_ase_from_config(dataset["config"], device="cpu")
+    state_path = str(tmp_path / "state.ckpt")
+    want = _save_as_train_state(dataset, state_path)
+    ref_path = dataset["ckpt"]
+    if wrap == "model":
+        ref_path = str(tmp_path / "wrapped.pt")
+        torch.save({"model": dataset["sd"], "epoch": 3}, ref_path)
+    for path in (state_path, ref_path):
+        got = load_ase_variables(path, cfg, device="cpu")
+        assert set(got) == {"params", "batch_stats"}
+        flat_g, flat_w = _leaves(got), _leaves(want)
+        assert flat_g.keys() == flat_w.keys() and len(flat_w) > 20
+        for k, w in flat_w.items():
+            assert flat_g[k].device.type == "cpu"
+            torch.testing.assert_close(flat_g[k], w, rtol=0, atol=0, msg=k)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _leaves(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _leaves(v, f"{prefix}{i}/").items()}
+    return {prefix: tree}
+
+
 def test_orbax_checkpoint_dirs_wait(dataset, tmp_path):
     with pytest.raises(NotImplementedError, match="later slice"):
         port_extract.load_ase_encoders(dataset["config"], str(tmp_path), device="cpu")

@@ -109,6 +109,38 @@ def test_pretrain_resume_and_finetune_drivers(tmp_path, monkeypatch):
                                want["batch_stats"]["audio_enc"]["bn0"]["var"], rtol=0, atol=0)
 
 
+def test_extract_reads_the_pretrain_drivers_checkpoint(tmp_path, monkeypatch):
+    """pretrain -> extract: the driver's ``best_model.ckpt`` loads in
+    ``load_ase_encoders`` and encodes with the trained parameters."""
+    from zs_aac_tpu_torch.pipeline.extract import load_ase_encoders
+
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    root = str(tmp_path)
+    vocab = _mk_corpus(root, n_audio=8)
+    config = _config(root, vocab)
+    cfg_path = _write(config, f"{root}/config.yaml")
+    ckpt_dir = pretrain.main(["-c", cfg_path, "--max_steps", "1", "--max_val_batches", "1",
+                              "--device", "cpu"])
+    best = os.path.join(ckpt_dir, "best_model.ckpt")
+    extract_cfg = {**config, "training": {**config["training"], "spec_augmentation": False}}
+    enc_a, enc_t = load_ase_encoders(extract_cfg, best, device="cpu")
+    seeded_a, seeded_t = load_ase_encoders(extract_cfg, None, device="cpu")
+    waves = np.random.default_rng(0).standard_normal((2, 32000)).astype(np.float32) * 0.1
+    audio, text = enc_a(waves), enc_t(["a dog barks", "rain falls"])
+    assert audio.shape == text.shape == (2, 16)
+    assert np.isfinite(audio).all() and np.isfinite(text).all()
+    np.testing.assert_allclose(np.linalg.norm(audio, axis=-1), 1.0, atol=1e-5)
+    # the trained weights, not the seeded ones a missing checkpoint gives
+    assert np.abs(audio - seeded_a(waves)).max() > 1e-3
+    assert np.abs(text - seeded_t(["a dog barks", "rain falls"])).max() > 1e-3
+    # and the same embeddings as the saved parameters give directly
+    saved = torch.load(best, map_location="cpu", weights_only=True)
+    again = str(tmp_path / "copy.ckpt")
+    torch.save({"params": saved["params"], "batch_stats": saved["batch_stats"]}, again)
+    np.testing.assert_array_equal(load_ase_encoders(extract_cfg, again, device="cpu")[0](waves),
+                                  audio)
+
+
 def test_drivers_default_to_cuda(tmp_path):
     assert pretrain.build_parser().parse_args(["-c", "x"]).device == "cuda"
 

@@ -174,8 +174,28 @@ __device__ __forceinline__ float2 unpack2(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
+// 8 bf16 values (16 bytes) to and from floats.
+__device__ __forceinline__ void unpack8(const uint4& u, float v[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = unpack2(w[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float v[8]) {
+  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]), pack2(v[6], v[7]));
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+// The same, or 16 bytes of zeros where `valid` is false (gmem is not read then).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int kPending> __device__ __forceinline__ void cp_async_wait() {
@@ -184,7 +204,7 @@ template <int kPending> __device__ __forceinline__ void cp_async_wait() {
 
 constexpr int kSlabRows = 32;  // weight rows (k) per staged slab: two 16-deep steps
 constexpr int kSlabStages = 3; // slab buffers: the copies run two slabs ahead
-constexpr int kSlabCopies = 3; // most 16-byte copies a thread makes per slab
+constexpr int kSlabCopies = 3; // most 16-byte copies a thread makes per slab (the default)
 
 // Row length (elements) of a bf16 shared-memory tile of `cols` columns whose
 // 16-byte chunks per row are odd in number, so that the 8 rows of an ldmatrix
@@ -198,24 +218,25 @@ __host__ __device__ inline int odd_ld(int cols) { return (cols / 8) % 2 ? cols :
 // by slab, with 16-byte cp.async into kSlabStages buffers at `slab` (row
 // length slab_ld = odd_ld(8 * chunks)): src(k, c8) is the global address of
 // the 8 values for slab columns 8*c8.. of row k < kSlabRows, and rows lie w_ld
-// elements apart, so a thread works out its (at most kSlabCopies) addresses
+// elements apart, so a thread works out its (at most kCopies: kSlabRows *
+// chunks copies over the block's threads) addresses
 // once a call and steps them from slab to slab; col0 is this warp's first
 // slab column. The copies run two slabs ahead of the products, with one
 // __syncthreads a slab: it makes slab s visible and frees the buffer of slab
 // s-1 for slab s+2. Every thread of the block calls it; it returns after a
 // __syncthreads, when the buffers are free and every warp's reads of A are
 // done.
-template <int kTiles, typename Src>
+template <int kTiles, int kCopies = kSlabCopies, typename Src>
 __device__ __forceinline__ void staged_gemm(float (&acc)[kTiles][4], uint32_t a_addr, int K,
                                             __nv_bfloat16* slab, int slab_ld, int chunks,
                                             int col0, int64_t w_ld, Src src) {
   const int lane = threadIdx.x & 31;
   const int stage = kSlabRows * slab_ld;
   const int nslab = K / kSlabRows;
-  const __nv_bfloat16* from[kSlabCopies];
-  int to[kSlabCopies];
+  const __nv_bfloat16* from[kCopies];
+  int to[kCopies];
 #pragma unroll
-  for (int j = 0; j < kSlabCopies; ++j) {
+  for (int j = 0; j < kCopies; ++j) {
     const int i = threadIdx.x + j * blockDim.x;
     const int kr = i / chunks, c8 = i - kr * chunks;
     to[j] = kr < kSlabRows ? kr * slab_ld + c8 * 8 : -1;
@@ -227,7 +248,7 @@ __device__ __forceinline__ void staged_gemm(float (&acc)[kTiles][4], uint32_t a_
     if (s < nslab) {
       __nv_bfloat16* dst = slab + (s % kSlabStages) * stage;
 #pragma unroll
-      for (int j = 0; j < kSlabCopies; ++j)
+      for (int j = 0; j < kCopies; ++j)
         if (to[j] >= 0) cp_async16(dst + to[j], from[j] + s * kSlabRows * w_ld);
     }
     cp_async_commit();

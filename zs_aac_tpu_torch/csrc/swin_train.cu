@@ -565,6 +565,369 @@ __global__ void __launch_bounds__(256) reduce_kernel(const float* part, int n_pa
   }
 }
 
+// -- the tensor-core kernels (bf16) ------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kGroup = 96;     // channels per warp column group
+constexpr int kFc1 = 64;       // hidden columns per warp and chunk
+constexpr int kThreads = 256;  // K8: 8 warps = (rows / 16) x (C / 96)
+constexpr int kRows = 128;     // K8: rows a block times column groups
+constexpr int kCopies = 6;     // K8: a 32 x 392 slab over 256 threads
+constexpr int kLnChunks = 2;   // 8-channel chunks a lane holds of a row: C <= 512
+
+struct MlpBwdTc {
+  const bf16 *y, *g, *ln2_s, *ln2_b, *fc1_w, *fc1_b, *fc2_wt, *fc1_wt;
+  const float* m2;
+  bf16 *dy, *yn_s, *gz_s, *hg_s, *dh1_s;
+  float *ln_part, *fc1b_part;
+  int64_t n_tok;
+  int HW, C, hidden, rows;
+  float eps;
+};
+
+// Byte offsets of K8's shared memory: the bf16 row tiles yn (at 0) and gz
+// [M][C + 8], over both of which the fp32 dyn tile [M][C + 8] lies after the
+// products; the hidden tile dh [M][chunk + 8] (chunk = 64 * C / 96); the slab
+// buffers [3][32][C + 8], over which the LN2 gradient partials [row groups]
+// [2][C] lie at the end; the column sums of dh per row tile [M / 16][chunk];
+// mean and 1/sigma of the rows.
+struct MlpSmem {
+  int gz, h, slab, colsum, stats, total;
+};
+__host__ __device__ inline MlpSmem mlp_smem(int M, int C) {
+  const int chunk = (C / kGroup) * kFc1, tile = M * (C + 8) * 2;
+  MlpSmem s;
+  s.gz = tile;
+  s.h = 2 * tile;
+  s.slab = s.h + M * (chunk + 8) * 2;
+  s.colsum = s.slab + kSlabStages * kSlabRows * (C + 8) * 2;
+  s.stats = s.colsum + (M / 16) * chunk * 4;
+  s.total = s.stats + 2 * M * 4;
+  return s;
+}
+
+// K8 per block of M = p.rows consecutive tokens. A warp owns 16 rows and one
+// column group: 96 channels of the C-wide products, 64 columns of a hidden
+// chunk.
+__global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = p.C, hidden = p.hidden, M = p.rows, groups = C / kGroup;
+  const int chunk = groups * kFc1, lda = C + 8, ldh = chunk + 8;
+  const MlpSmem lay = mlp_smem(M, C);
+  bf16* yn = reinterpret_cast<bf16*>(smem);
+  bf16* gz = reinterpret_cast<bf16*>(smem + lay.gz);
+  bf16* dh = reinterpret_cast<bf16*>(smem + lay.h);
+  bf16* slab = reinterpret_cast<bf16*>(smem + lay.slab);
+  float* colsum = reinterpret_cast<float*>(smem + lay.colsum);
+  float* mean = reinterpret_cast<float*>(smem + lay.stats);
+  float* inv = mean + M;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int mt = warp % (M / 16), wn = warp / (M / 16);
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * M;
+  // row passes: 16 lanes a row at C <= 128, else a warp; a lane holds the
+  // 8-channel chunks sl, sl + L, ... of its row
+  const int n8 = C / 8, L = n8 <= 16 ? 16 : 32, sl = lane & (L - 1);
+  const int row_groups = (kThreads / 32) * (32 / L), rg = warp * (32 / L) + lane / L;
+
+  // 1. LN2(y) and gz = g * m2 into the row tiles and to scratch.
+  for (int r = rg; r < M; r += row_groups) {
+    const int64_t tok = t0 + r;
+    const bool valid = tok < p.n_tok;
+    float v[kLnChunks][8], gv[kLnChunks][8];
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      const int c8 = sl + j * L;
+      if (c8 < n8) {
+        uint4 yu = make_uint4(0u, 0u, 0u, 0u), gu = yu;
+        if (valid) {
+          yu = *reinterpret_cast<const uint4*>(p.y + tok * C + c8 * 8);
+          gu = *reinterpret_cast<const uint4*>(p.g + tok * C + c8 * 8);
+        }
+        unpack8(yu, v[j]);
+        unpack8(gu, gv[j]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum += v[j][i];
+      }
+    }
+    for (int o = L / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mu = sum / C;
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      if (sl + j * L < n8) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sq += (v[j][i] - mu) * (v[j][i] - mu);
+      }
+    }
+    for (int o = L / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    const float iv = 1.f / sqrtf(sq / C + p.eps);
+    const float m2 = valid ? p.m2[tok / p.HW] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      const int c8 = sl + j * L;
+      if (c8 < n8) {
+        float sc[8], bb[8];
+        unpack8(*reinterpret_cast<const uint4*>(p.ln2_s + c8 * 8), sc);
+        unpack8(*reinterpret_cast<const uint4*>(p.ln2_b + c8 * 8), bb);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          v[j][i] = (v[j][i] - mu) * iv * sc[i] + bb[i];
+          gv[j][i] *= m2;
+        }
+        const uint4 yv = pack8(v[j]), zv = pack8(gv[j]);
+        *reinterpret_cast<uint4*>(yn + r * lda + c8 * 8) = yv;
+        *reinterpret_cast<uint4*>(gz + r * lda + c8 * 8) = zv;
+        if (valid) {
+          *reinterpret_cast<uint4*>(p.yn_s + tok * C + c8 * 8) = yv;
+          *reinterpret_cast<uint4*>(p.gz_s + tok * C + c8 * 8) = zv;
+        }
+      }
+    }
+    if (sl == 0) {
+      mean[r] = mu;
+      inv[r] = iv;
+    }
+  }
+  __syncthreads();
+
+  // 2. Per hidden chunk: h and gelu'(h); dh = (gz Wfc2^T) gelu'(h); dyn += dh Wfc1^T.
+  const int row = mt * 16 + (lane & 15);
+  const uint32_t yn_addr = smem_addr(yn + row * lda + (lane >> 4) * 8);
+  const uint32_t gz_addr = smem_addr(gz + row * lda + (lane >> 4) * 8);
+  const uint32_t dh_addr = smem_addr(dh + row * ldh + (lane >> 4) * 8);
+  const int64_t tok_lo = t0 + mt * 16 + g, tok_hi = tok_lo + 8;
+  const bool lo = tok_lo < p.n_tok, hi = tok_hi < p.n_tok;
+  float dyn[kGroup / 8][4] = {};
+  for (int h0 = 0; h0 < hidden; h0 += chunk) {
+    float f[kFc1 / 8][4] = {};
+    staged_gemm<kFc1 / 8, kCopies>(f, yn_addr, C, slab, odd_ld(chunk), chunk / 8, wn * kFc1,
+                                   hidden, [&](int k, int c8) {
+                                     return p.fc1_w + static_cast<int64_t>(k) * hidden + h0 +
+                                            c8 * 8;
+                                   });
+    // gelu(h), rounded, to scratch; gelu'(h) stays in f
+#pragma unroll
+    for (int nt = 0; nt < kFc1 / 8; ++nt) {
+      const int c = h0 + wn * kFc1 + nt * 8 + 2 * t;
+      const float2 bv = unpack2(*reinterpret_cast<const uint32_t*>(p.fc1_b + c));
+      float hg[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float hv = f[nt][i] + ((i & 1) ? bv.y : bv.x);
+        hg[i] = gelu(hv);
+        f[nt][i] = gelu_grad(hv);
+      }
+      if (lo) *reinterpret_cast<uint32_t*>(p.hg_s + tok_lo * hidden + c) = pack2(hg[0], hg[1]);
+      if (hi) *reinterpret_cast<uint32_t*>(p.hg_s + tok_hi * hidden + c) = pack2(hg[2], hg[3]);
+    }
+    float e[kFc1 / 8][4] = {};
+    staged_gemm<kFc1 / 8, kCopies>(e, gz_addr, C, slab, odd_ld(chunk), chunk / 8, wn * kFc1,
+                                   hidden, [&](int k, int c8) {
+                                     return p.fc2_wt + static_cast<int64_t>(k) * hidden + h0 +
+                                            c8 * 8;
+                                   });
+    // dh in fp32: its column sums over the warp's 16 rows; rounded, into the
+    // hidden tile and to scratch
+#pragma unroll
+    for (int nt = 0; nt < kFc1 / 8; ++nt) {
+      const int cl = wn * kFc1 + nt * 8 + 2 * t;
+      float d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = e[nt][i] * f[nt][i];
+      float s0 = d[0] + d[2], s1 = d[1] + d[3];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0) *reinterpret_cast<float2*>(colsum + mt * chunk + cl) = make_float2(s0, s1);
+      const uint32_t u = pack2(d[0], d[1]), l = pack2(d[2], d[3]);
+      bf16* dst = dh + (mt * 16 + g) * ldh + cl;
+      *reinterpret_cast<uint32_t*>(dst) = u;
+      *reinterpret_cast<uint32_t*>(dst + 8 * ldh) = l;
+      if (lo) *reinterpret_cast<uint32_t*>(p.dh1_s + tok_lo * hidden + h0 + cl) = u;
+      if (hi) *reinterpret_cast<uint32_t*>(p.dh1_s + tok_hi * hidden + h0 + cl) = l;
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < chunk; j += kThreads) {
+      float sum = 0.f;
+      for (int m = 0; m < M / 16; ++m) sum += colsum[m * chunk + j];
+      p.fc1b_part[static_cast<int64_t>(blockIdx.x) * hidden + h0 + j] = sum;
+    }
+    staged_gemm<kGroup / 8, kCopies>(dyn, dh_addr, chunk, slab, odd_ld(C), n8, wn * kGroup, C,
+                                     [&](int k, int c8) {
+                                       return p.fc1_wt + static_cast<int64_t>(h0 + k) * C +
+                                              c8 * 8;
+                                     });
+  }
+
+  // 3. dyn (fp32) over the row tiles; the LN2 backward, dy = g + round(du) and
+  // the LN2 gradient partials, a lane summing its channels over its rows.
+  float* dt = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int nt = 0; nt < kGroup / 8; ++nt) {
+    float* dst = dt + (mt * 16 + g) * lda + wn * kGroup + nt * 8 + 2 * t;
+    *reinterpret_cast<float2*>(dst) = make_float2(dyn[nt][0], dyn[nt][1]);
+    *reinterpret_cast<float2*>(dst + 8 * lda) = make_float2(dyn[nt][2], dyn[nt][3]);
+  }
+  __syncthreads();
+  float s1[kLnChunks][8] = {}, s2[kLnChunks][8] = {};
+  for (int r = rg; r < M; r += row_groups) {
+    const int64_t tok = t0 + r;
+    const bool valid = tok < p.n_tok;
+    const float mu = mean[r], iv = inv[r];
+    float xh[kLnChunks][8], d[kLnChunks][8];
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      const int c8 = sl + j * L;
+      if (c8 < n8) {
+        uint4 yu = make_uint4(0u, 0u, 0u, 0u);
+        if (valid) yu = *reinterpret_cast<const uint4*>(p.y + tok * C + c8 * 8);
+        unpack8(yu, xh[j]);
+        float sc[8];
+        unpack8(*reinterpret_cast<const uint4*>(p.ln2_s + c8 * 8), sc);
+        const float4 da = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8);
+        const float4 db = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8 + 4);
+        d[j][0] = da.x; d[j][1] = da.y; d[j][2] = da.z; d[j][3] = da.w;
+        d[j][4] = db.x; d[j][5] = db.y; d[j][6] = db.z; d[j][7] = db.w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          xh[j][i] = (xh[j][i] - mu) * iv;
+          const float gs = d[j][i] * sc[i];
+          sa += gs;
+          sb += gs * xh[j][i];
+        }
+      }
+    }
+    for (int o = L / 2; o > 0; o >>= 1) {
+      sa += __shfl_xor_sync(0xffffffffu, sa, o);
+      sb += __shfl_xor_sync(0xffffffffu, sb, o);
+    }
+    const float ma = sa / C, mb = sb / C;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      const int c8 = sl + j * L;
+      if (c8 < n8) {
+        float sc[8], out[8] = {};
+        unpack8(*reinterpret_cast<const uint4*>(p.ln2_s + c8 * 8), sc);
+        if (valid) unpack8(*reinterpret_cast<const uint4*>(p.g + tok * C + c8 * 8), out);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float du = (d[j][i] * sc[i] - ma - xh[j][i] * mb) * iv;
+          out[i] += rnd<bf16>(du);
+          s1[j][i] += d[j][i] * xh[j][i];
+          s2[j][i] += d[j][i];
+        }
+        if (valid) *reinterpret_cast<uint4*>(p.dy + tok * C + c8 * 8) = pack8(out);
+      }
+    }
+  }
+  float* psum = reinterpret_cast<float*>(slab);  // [row_groups][2][C]
+#pragma unroll
+  for (int j = 0; j < kLnChunks; ++j) {
+    const int c8 = sl + j * L;
+    if (c8 < n8) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        psum[(rg * 2) * C + c8 * 8 + i] = s1[j][i];
+        psum[(rg * 2 + 1) * C + c8 * 8 + i] = s2[j][i];
+      }
+    }
+  }
+  __syncthreads();
+  float* part = p.ln_part + static_cast<int64_t>(blockIdx.x) * 2 * C;
+  for (int idx = threadIdx.x; idx < 2 * C; idx += kThreads) {
+    float sum = 0.f;
+    for (int q = 0; q < row_groups; ++q) sum += psum[q * 2 * C + idx];
+    part[idx] = sum;
+  }
+}
+
+// part[z] = A[chunk z]^T B[chunk z] on the tensor cores: a 96 x 96 output tile
+// a block of 4 warps (48 x 48 each: 3 x 6 mma tiles), the token direction is
+// k. The operands' tiles lie in shared memory as [tokens][columns], so the A
+// fragment of A^T comes from ldmatrix.trans as the B fragment does. 32 tokens
+// a step through three buffers, the 16-byte cp.async copies two steps ahead;
+// tokens past the chunk's end are zeros.
+constexpr int kWgTile = 96, kWgTk = 32, kWgStages = 3, kWgLd = kWgTile + 8, kWgThreads = 128;
+
+__global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const bf16* A, int lda, const bf16* B,
+                                                            int ldb, int64_t n_tok, int M,
+                                                            int Ncol, int64_t chunk_len,
+                                                            float* part) {
+  __shared__ __align__(16) bf16 As[kWgStages][kWgTk][kWgLd];
+  __shared__ __align__(16) bf16 Bs[kWgStages][kWgTk][kWgLd];
+  const int i0 = blockIdx.y * kWgTile, j0 = blockIdx.x * kWgTile;
+  const int64_t ta = min(n_tok, static_cast<int64_t>(blockIdx.z) * chunk_len);
+  const int64_t tb = min(n_tok, ta + chunk_len);
+  const int nstep = static_cast<int>((tb - ta + kWgTk - 1) / kWgTk);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 48, n0 = (warp >> 1) * 48;
+  constexpr int kC8 = kWgTile / 8, kPer = kWgTk * kC8 / kWgThreads;  // 3 copies an operand
+  auto copy_step = [&](int s) {
+    if (s < nstep) {
+      const int64_t tbase = ta + static_cast<int64_t>(s) * kWgTk;
+      const int st = s % kWgStages;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int idx = threadIdx.x + j * kWgThreads, r = idx / kC8, c = (idx % kC8) * 8;
+        const bool valid = tbase + r < tb;
+        const int64_t tok = valid ? tbase + r : ta;
+        cp_async16_zfill(&As[st][r][c], A + tok * lda + i0 + c, valid);
+        cp_async16_zfill(&Bs[st][r][c], B + tok * ldb + j0 + c, valid);
+      }
+    }
+    cp_async_commit();
+  };
+  static_assert(kWgStages == 3, "the prologue copies two steps");
+  copy_step(0);
+  copy_step(1);
+  float acc[3][6][4] = {};
+  for (int s = 0; s < nstep; ++s) {
+    cp_async_wait<kWgStages - 2>();
+    __syncthreads();
+    copy_step(s + kWgStages - 1);
+    const int st = s % kWgStages;
+#pragma unroll
+    for (int kk = 0; kk < kWgTk / 16; ++kk) {
+      uint32_t a[3][4];
+#pragma unroll
+      for (int mi = 0; mi < 3; ++mi)
+        ldsm_x4_t(a[mi], smem_addr(&As[st][kk * 16 + (lane >> 4) * 8 + (lane & 7)]
+                                      [m0 + mi * 16 + ((lane >> 3) & 1) * 8]));
+#pragma unroll
+      for (int np = 0; np < 3; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, smem_addr(&Bs[st][kk * 16 + (lane & 15)][n0 + np * 16 + (lane >> 4) * 8]));
+#pragma unroll
+        for (int mi = 0; mi < 3; ++mi) {
+          mma_k16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma_k16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  float* out = part + static_cast<int64_t>(blockIdx.z) * M * Ncol;
+#pragma unroll
+  for (int mi = 0; mi < 3; ++mi) {
+#pragma unroll
+    for (int nt = 0; nt < 6; ++nt) {
+      float* dst = out + static_cast<int64_t>(i0 + m0 + mi * 16 + g) * Ncol + j0 + n0 + nt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[mi][nt][0], acc[mi][nt][1]);
+      *reinterpret_cast<float2*>(dst + 8 * static_cast<int64_t>(Ncol)) =
+          make_float2(acc[mi][nt][2], acc[mi][nt][3]);
+    }
+  }
+}
+
+}  // namespace tc
+
 template <typename K, typename P>
 int launch(K kernel, const P& p, int n_blocks, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -646,6 +1009,38 @@ extern "C" int swin_mlp_bwd(int dtype, const void* y, const void* g, const void*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K8's per-token kernel on the tensor cores: bf16, C = 96 * groups with groups
+// 1, 2 or 4, hidden a multiple of 64 * groups, `rows` = 128 / groups tokens a
+// block (n_tok need not be a multiple of it). fc2_wt [C, hidden] and fc1_wt
+// [hidden, C] are the transposed weights. Scratch as for swin_mlp_bwd, with
+// ceil(n_tok / rows) rows of partials.
+extern "C" int swin_mlp_bwd_tc(const void* y, const void* g, const void* m2, const void* ln2_s,
+                               const void* ln2_b, const void* fc1_w, const void* fc1_b,
+                               const void* fc2_wt, const void* fc1_wt, void* dy, void* yn_s,
+                               void* gz_s, void* hg_s, void* dh1_s, void* ln_part,
+                               void* fc1b_part, long long n_tok, int HW, int C, int hidden,
+                               int rows, float eps, void* stream) {
+  using tc::bf16;
+  const int groups = C / tc::kGroup;
+  if (C % tc::kGroup || (groups != 1 && groups != 2 && groups != 4) || hidden <= 0 ||
+      hidden % (groups * tc::kFc1) || rows * groups != tc::kRows || n_tok <= 0 || HW <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* q) { return static_cast<const bf16*>(q); };
+  auto out = [](void* q) { return static_cast<bf16*>(q); };
+  tc::MlpBwdTc p{in(y), in(g), in(ln2_s), in(ln2_b), in(fc1_w), in(fc1_b), in(fc2_wt),
+                 in(fc1_wt), static_cast<const float*>(m2), out(dy), out(yn_s), out(gz_s),
+                 out(hg_s), out(dh1_s), static_cast<float*>(ln_part),
+                 static_cast<float*>(fc1b_part), n_tok, HW, C, hidden, rows, eps};
+  const int smem = tc::mlp_smem(rows, C).total;
+  if (smem > smem_limit()) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(tc::mlp_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned n_blocks = static_cast<unsigned>((n_tok + rows - 1) / rows);
+  tc::mlp_bwd_kernel<<<n_blocks, tc::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out [M, Ncol] fp32 = A^T B over n_tok tokens (A [n_tok, lda], B [n_tok,
 // ldb] in the activation dtype; A null: out [1, Ncol] = column sums of B),
 // through n_chunks token chunks of partials in `part` ([n_chunks, M, Ncol]).
@@ -668,6 +1063,31 @@ extern "C" int swin_wgrad(int dtype, const void* A, int lda, const void* B, int 
         n_tok, M, Ncol, chunk, pp);
   else
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long len = static_cast<long long>(M) * Ncol;
+  reduce_kernel<<<static_cast<unsigned>((len + 31) / 32), 256, 0, s>>>(pp, n_chunks, len,
+                                                                      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same product on the tensor cores: bf16, M and Ncol multiples of 96, lda
+// and ldb multiples of 8 (16-byte rows). Chunks are a multiple of 32 tokens
+// long; one past the last token gives zeros.
+extern "C" int swin_wgrad_tc(const void* A, int lda, const void* B, int ldb, long long n_tok,
+                             int M, int Ncol, int n_chunks, void* part, void* out,
+                             void* stream) {
+  if (A == nullptr || n_chunks <= 0 || n_tok <= 0 || M <= 0 || Ncol <= 0 || M % tc::kWgTile ||
+      Ncol % tc::kWgTile || lda % 8 || ldb % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long per = (n_tok + n_chunks - 1) / n_chunks;
+  const long long chunk = (per + tc::kWgTk - 1) / tc::kWgTk * tc::kWgTk;
+  dim3 grid(Ncol / tc::kWgTile, M / tc::kWgTile, n_chunks);
+  float* pp = static_cast<float*>(part);
+  tc::wgrad_kernel<<<grid, tc::kWgThreads, 0, s>>>(static_cast<const tc::bf16*>(A), lda,
+                                                   static_cast<const tc::bf16*>(B), ldb, n_tok,
+                                                   M, Ncol, chunk, pp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long len = static_cast<long long>(M) * Ncol;

@@ -380,19 +380,6 @@ __device__ __forceinline__ int64_t row_offset(const Params& p, int nWin, int gw,
   return ((static_cast<int64_t>(b) * p.H + hr) * p.W + wc) * p.C;
 }
 
-__device__ __forceinline__ void unpack8(const uint4& u, float v[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = unpack2(w[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ uint4 pack8(const float v[8]) {
-  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]), pack2(v[6], v[7]));
-}
-
 // The block's rows into dst [M][lda], 16 bytes a thread over all rows at
 // once: from `src` at the tokens' places in [B, H, W, C] (`linear` false) or
 // at rows gw * 64 + r of a window-major [B * nWin * 64, C] scratch. Rows of

@@ -35,9 +35,13 @@ what a kernel refuses, never falling back):
 K3, K5 and K7 are ``csrc/window_attn.cu``, in two instantiations chosen by
 shape (``window_kernel_plan``): tensor-core kernels for bf16 at HTSAT's
 shapes, the FMA kernel for fp32 and every other shape. K6, K8 and K9 are
-``csrc/swin_train.cu``. Each kernel's wrapper counts its launches in
-``.launches``, and K3/K5/K7's those that took the tensor-core kernels in
-``.tc_launches``.
+``csrc/swin_train.cu``: K8's per-token kernel (``mlp_bwd_plan``) and the
+split-token weight-gradient product that K6, K8 and K9 share (``wgrad_plan``)
+have a tensor-core instantiation for bf16 at HTSAT's widths beside the FMA
+one. Each kernel's wrapper counts its launches in ``.launches``, and
+K3/K5/K7/K8's those that took the tensor-core kernels in ``.tc_launches``
+(K8: the per-token kernel and both weight products); ``_wgrad.tc_launches``
+counts the weight-gradient products on the tensor cores.
 
 Numerics (the JAX kernels' rounding points): in the activation dtype ``dt``
 these round -- qkv, q times the (``dt``-rounded) scale, the probabilities,
@@ -72,6 +76,8 @@ __all__ = [
     "mlp_bwd",
     "attn_ln1_bwd",
     "window_kernel_plan",
+    "mlp_bwd_plan",
+    "wgrad_plan",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,6 +87,8 @@ _HIDDEN_CHUNK = 64     # hidden columns per MLP chunk (kChunk in the kernel)
 _WGRAD_BLOCKS = 528    # split-token weight-gradient blocks to aim for (4 per SM)
 _TC_HEAD_DIM = 24      # the tensor-core kernels' head dim (every HTSAT stage)
 _TC_GROUP = 96         # channels per warp column group there: 4 heads
+_TC_MLP_BWD_ROWS = 128 # K8's tensor-core kernel: rows a block times column groups
+_FMA_WGRAD_TILE = 64   # output tile of the FMA weight-gradient product
 
 
 def build_window_bias(rpb, mask, nH: int, nW: int):
@@ -354,10 +362,13 @@ def _train_lib():
         lib.swin_attn_bwd.argtypes = [i, i] + [vp] * 17 + [i] * 8 + [f, f, vp]
         lib.swin_mlp_bwd.argtypes = ([i] + [vp] * 15 + [ctypes.c_longlong] + [i] * 4
                                      + [f, vp])
+        lib.swin_mlp_bwd_tc.argtypes = ([vp] * 16 + [ctypes.c_longlong] + [i] * 4 + [f, vp])
         lib.swin_wgrad.argtypes = [i, vp, i, vp, i, ctypes.c_longlong, i, i, i, vp, vp, vp]
+        lib.swin_wgrad_tc.argtypes = [vp, i, vp, i, ctypes.c_longlong, i, i, i, vp, vp, vp]
         lib.swin_reduce.argtypes = [vp, i, ctypes.c_longlong, vp, vp]
         for fn in (lib.swin_train_smem, lib.swin_train_smem_limit, lib.swin_attn_bwd,
-                   lib.swin_mlp_bwd, lib.swin_wgrad, lib.swin_reduce):
+                   lib.swin_mlp_bwd, lib.swin_mlp_bwd_tc, lib.swin_wgrad, lib.swin_wgrad_tc,
+                   lib.swin_reduce):
             fn.restype = ctypes.c_int
     return lib
 
@@ -516,19 +527,74 @@ def _train_rows(name, lib, which, itemsize, C, candidates):
                      "memory per block")
 
 
+def mlp_bwd_plan(dtype, n_tok: int, C: int, hidden: int):
+    """Which per-token kernel of ``csrc/swin_train.cu`` a launch of K8 takes,
+    from the activation dtype, the tokens ``n_tok`` = B*H*W, the channels
+    ``C`` and the hidden width.
+
+    - ``("tc", rows)``: the tensor-core kernel. bf16, C = 96, 192 or 384 and
+      hidden = 4C (HTSAT's stages 1-3, every shape the train step gives K8);
+      ``rows`` tokens a block (128 over the C / 96 column groups: 8 warps).
+    - ``("fma",)``: the FMA kernel. fp32 always (TF32 would break the fp32
+      fixtures' tolerances), and bf16 at any other width.
+
+    Raises ``TypeError`` or ``ValueError`` for what neither takes. A rule on
+    shapes alone: a CUDA tensor launches the planned kernel or raises."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"mlp_bwd: unsupported activation dtype {dtype}")
+    if C <= 0 or hidden <= 0 or n_tok <= 0 or n_tok % 8:
+        raise ValueError(f"mlp_bwd: {n_tok} tokens of {C} channels, hidden {hidden}; the "
+                         "kernels take a positive multiple of 8 tokens")
+    groups = C // _TC_GROUP
+    if (dtype == torch.bfloat16 and C % _TC_GROUP == 0 and groups in (1, 2, 4)
+            and hidden == 4 * C):
+        return ("tc", _TC_MLP_BWD_ROWS // groups)
+    return ("fma",)
+
+
+def wgrad_plan(dtype, n_tok: int, M: int, Ncol: int, has_a: bool = True):
+    """Which split-token weight-gradient kernel a product ``A^T B`` ([n_tok,
+    M]^T [n_tok, Ncol]; ``has_a`` false: the column sums of B, M = 1) takes,
+    and over how many token chunks.
+
+    - ``("tc", n_chunks)``: the tensor-core kernel, 96 x 96 output tiles.
+      bf16 with M and Ncol multiples of 96 (every weight gradient of K6, K8
+      and K9 at HTSAT's four stages).
+    - ``("fma", n_chunks)``: the FMA kernel, 64 x 64 tiles. fp32 always, bf16
+      at other widths, and the column sums (bound by bytes, not products).
+
+    ``n_chunks`` aims at ``_WGRAD_BLOCKS`` blocks with at least 256 tokens a
+    chunk. Raises ``TypeError`` or ``ValueError`` for what neither takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"weight gradient: unsupported activation dtype {dtype}")
+    if n_tok <= 0 or M <= 0 or Ncol <= 0 or (not has_a and M != 1):
+        raise ValueError(f"weight gradient: [{n_tok}, {M}]^T [{n_tok}, {Ncol}] "
+                         f"(has_a={has_a}) is no product the kernels take")
+    tc = dtype == torch.bfloat16 and has_a and M % _TC_GROUP == 0 and Ncol % _TC_GROUP == 0
+    tile = _TC_GROUP if tc else _FMA_WGRAD_TILE
+    tiles = math.ceil(M / tile) * math.ceil(Ncol / tile)
+    n_chunks = max(1, min(math.ceil(_WGRAD_BLOCKS / tiles), n_tok // 256))
+    return ("tc" if tc else "fma", n_chunks)
+
+
 def _wgrad(lib, name, A, lda, B, ldb, n_tok, M, Ncol):
     """[M, Ncol] fp32 = A^T B over ``n_tok`` rows (A None: the column sums
-    of B, [1, Ncol]) through the split-token kernel of ``swin_train.cu``."""
-    tiles = math.ceil(M / 64) * math.ceil(Ncol / 64)
-    n_chunks = max(1, min(math.ceil(_WGRAD_BLOCKS / tiles), n_tok // 256))
+    of B, [1, Ncol]) through the split-token kernel of ``swin_train.cu`` that
+    ``wgrad_plan`` names. Returns (out, whether the tensor cores took it)."""
+    kind, n_chunks = wgrad_plan(B.dtype, n_tok, M, Ncol, A is not None)
     part = torch.empty(n_chunks * M * Ncol, dtype=torch.float32, device=B.device)
     out = torch.empty(M, Ncol, dtype=torch.float32, device=B.device)
-    rc = lib.swin_wgrad(_DTYPES[B.dtype], None if A is None else A.data_ptr(), lda,
-                        B.data_ptr(), ldb, n_tok, M, Ncol, n_chunks, part.data_ptr(),
-                        out.data_ptr(), _stream(B))
+    if kind == "tc":
+        rc = lib.swin_wgrad_tc(A.data_ptr(), lda, B.data_ptr(), ldb, n_tok, M, Ncol, n_chunks,
+                               part.data_ptr(), out.data_ptr(), _stream(B))
+    else:
+        rc = lib.swin_wgrad(_DTYPES[B.dtype], None if A is None else A.data_ptr(), lda,
+                            B.data_ptr(), ldb, n_tok, M, Ncol, n_chunks, part.data_ptr(),
+                            out.data_ptr(), _stream(B))
     if rc != 0:
         raise RuntimeError(f"{name}: weight-gradient launch failed (cudaError {rc})")
-    return out
+    _wgrad.tc_launches += kind == "tc"
+    return out, kind == "tc"
 
 
 def _reduce(lib, name, part):
@@ -585,10 +651,10 @@ def _attn_bwd_launch(name, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, window, num
         float(eps), _scale(d, dt), _stream(x))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    grads = (dx, _wgrad(lib, name, xn_s, C, dqkv_s, 3 * C, n_tok, C, 3 * C),
-             _wgrad(lib, name, None, 0, dqkv_s, 3 * C, n_tok, 1, 3 * C).reshape(-1),
-             _wgrad(lib, name, o_s, C, go_s, C, n_tok, C, C),
-             _wgrad(lib, name, None, 0, go_s, C, n_tok, 1, C).reshape(-1),
+    grads = (dx, _wgrad(lib, name, xn_s, C, dqkv_s, 3 * C, n_tok, C, 3 * C)[0],
+             _wgrad(lib, name, None, 0, dqkv_s, 3 * C, n_tok, 1, 3 * C)[0].reshape(-1),
+             _wgrad(lib, name, o_s, C, go_s, C, n_tok, C, C)[0],
+             _wgrad(lib, name, None, 0, go_s, C, n_tok, 1, C)[0].reshape(-1),
              _reduce(lib, name, dbias_part).reshape(nH, nW, h, N, N))
     if ln is None:
         return grads
@@ -596,8 +662,48 @@ def _attn_bwd_launch(name, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, window, num
     return grads + (sums[:C], sums[C:])
 
 
+def _mlp_bwd_tokens(name, lib, plan, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps):
+    """K8's per-token kernel, the one ``plan`` (``mlp_bwd_plan``) names: dy and
+    the scratch the weight gradients are made from: (dy, yn_s, gz_s [n_tok, C],
+    hg_s, dh1_s [n_tok, hidden] in y's dtype, ln_part [blocks, 2C], fc1b_part
+    [blocks, hidden] fp32)."""
+    B, H, W, C = y.shape
+    dt = y.dtype
+    hidden = fc1_w.shape[1]
+    n_tok = B * H * W
+    if plan[0] == "tc":
+        rows = plan[1]
+    else:
+        rows = _train_rows(name, lib, 2, y.element_size(), C,
+                           [r for r in (64, 32, 16, 8) if n_tok % r == 0])
+    blocks = math.ceil(n_tok / rows)
+    new = lambda *s, dtype=dt: torch.empty(*s, dtype=dtype, device=y.device)
+    dy = torch.empty_like(y)
+    yn_s, gz_s = new(n_tok, C), new(n_tok, C)
+    hg_s, dh1_s = new(n_tok, hidden), new(n_tok, hidden)
+    ln_part = new(blocks, 2 * C, dtype=torch.float32)
+    fc1b_part = new(blocks, hidden, dtype=torch.float32)
+    head = (y.data_ptr(), g.data_ptr(), m2.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(),
+            fc1_w.data_ptr(), fc1_b.data_ptr())
+    tail = (dy.data_ptr(), yn_s.data_ptr(), gz_s.data_ptr(), hg_s.data_ptr(), dh1_s.data_ptr(),
+            ln_part.data_ptr(), fc1b_part.data_ptr(), n_tok, H * W, C, hidden, rows, float(eps),
+            _stream(y))
+    if plan[0] == "tc":
+        # the kernel stages weight rows along the output columns of each
+        # product: fc2_w^T [C, hidden] and fc1_w^T [hidden, C], copied once a call
+        fc2_wt, fc1_wt = fc2_w.t().contiguous(), fc1_w.t().contiguous()
+        rc = lib.swin_mlp_bwd_tc(*head, fc2_wt.data_ptr(), fc1_wt.data_ptr(), *tail)
+    else:
+        rc = lib.swin_mlp_bwd(_DTYPES[dt], *head, fc2_w.data_ptr(), *tail)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    return dy, yn_s, gz_s, hg_s, dh1_s, ln_part, fc1b_part
+
+
 def _mlp_bwd_launch(name, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps):
-    """K8: (dy, dln2_s, dln2_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b), gradients fp32."""
+    """K8: ((dy, dln2_s, dln2_b, dfc1_w, dfc1_b, dfc2_w, dfc2_b), gradients
+    fp32; whether the per-token kernel and both weight products ran on the
+    tensor cores)."""
     if y.dim() != 4 or y.dtype not in _DTYPES:
         raise ValueError(f"{name}: y must be a [B, H, W, C] fp32 or bf16 tensor")
     B, H, W, C = y.shape
@@ -609,29 +715,16 @@ def _mlp_bwd_launch(name, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps):
                   ("fc1_b", fc1_b, (hidden,), dt), ("fc2_w", fc2_w, (hidden, C), dt)],
            y.device)
     n_tok = B * H * W
+    plan = mlp_bwd_plan(dt, n_tok, C, hidden)
     lib = _train_lib()
-    rows = _train_rows(name, lib, 2, y.element_size(), C,
-                       [r for r in (64, 32, 16, 8) if n_tok % r == 0])
-    new = lambda *s, dtype=dt: torch.empty(*s, dtype=dtype, device=y.device)
-    dy = torch.empty_like(y)
-    yn_s, gz_s = new(n_tok, C), new(n_tok, C)
-    hg_s, dh1_s = new(n_tok, hidden), new(n_tok, hidden)
-    ln_part = new(n_tok // rows, 2 * C, dtype=torch.float32)
-    fc1b_part = new(n_tok // rows, hidden, dtype=torch.float32)
-    rc = lib.swin_mlp_bwd(
-        _DTYPES[dt], y.data_ptr(), g.data_ptr(), m2.data_ptr(), ln2_s.data_ptr(),
-        ln2_b.data_ptr(), fc1_w.data_ptr(), fc1_b.data_ptr(), fc2_w.data_ptr(), dy.data_ptr(),
-        yn_s.data_ptr(), gz_s.data_ptr(), hg_s.data_ptr(), dh1_s.data_ptr(),
-        ln_part.data_ptr(), fc1b_part.data_ptr(), n_tok, H * W, C, hidden, rows, float(eps),
-        _stream(y))
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    dy, yn_s, gz_s, hg_s, dh1_s, ln_part, fc1b_part = _mlp_bwd_tokens(
+        name, lib, plan, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps)
     sums = _reduce(lib, name, ln_part)
-    return (dy, sums[:C], sums[C:],
-            _wgrad(lib, name, yn_s, C, dh1_s, hidden, n_tok, C, hidden),
-            _reduce(lib, name, fc1b_part),
-            _wgrad(lib, name, hg_s, hidden, gz_s, C, n_tok, hidden, C),
-            _wgrad(lib, name, None, 0, gz_s, C, n_tok, 1, C).reshape(-1))
+    dfc1_w, tc1 = _wgrad(lib, name, yn_s, C, dh1_s, hidden, n_tok, C, hidden)
+    dfc2_w, tc2 = _wgrad(lib, name, hg_s, hidden, gz_s, C, n_tok, hidden, C)
+    return ((dy, sums[:C], sums[C:], dfc1_w, _reduce(lib, name, fc1b_part), dfc2_w,
+             _wgrad(lib, name, None, 0, gz_s, C, n_tok, 1, C)[0].reshape(-1)),
+            plan[0] == "tc" and tc1 and tc2)
 
 
 # -- wrappers of the backward kernels -------------------------------------------
@@ -653,13 +746,15 @@ def window_attention_bwd(x, g, qkv_w, qkv_b, proj_w, proj_b, bias, window: int,
 
 
 def mlp_bwd(y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps: float):
-    """K8: ``mlp_bwd_plain`` for CPU tensors, the CUDA kernel for CUDA
-    tensors (same arguments and result)."""
+    """K8: ``mlp_bwd_plain`` for CPU tensors, the CUDA kernels that
+    ``mlp_bwd_plan`` and ``wgrad_plan`` name for CUDA tensors (same arguments
+    and result)."""
     if _route(y, "mlp_bwd"):
         return mlp_bwd_plain(y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps)
-    out = _mlp_bwd_launch("mlp_bwd", y, g.contiguous(), m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w,
-                          eps)
+    out, tc = _mlp_bwd_launch("mlp_bwd", y, g.contiguous(), m2, ln2_s, ln2_b, fc1_w, fc1_b,
+                              fc2_w, eps)
     mlp_bwd.launches += 1
+    mlp_bwd.tc_launches += tc
     return out
 
 
@@ -801,5 +896,5 @@ def fused_swin_block_train(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
 for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train,
             window_attention_bwd, mlp_bwd, attn_ln1_bwd):
     _fn.launches = 0
-for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train):
+for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train, mlp_bwd, _wgrad):
     _fn.tc_launches = 0

@@ -10,9 +10,11 @@ to ``<out>/<split>/clap_embedding/ZS/data.pkl``.
 On the card the encoders run the hand-written kernels: K2 (log-mel), K3 (the
 whole Swin block) in every HTSAT stage but the last, and K5 (window
 attention) in the last stage, the TPU dispatch. Without a checkpoint the
-weights are seeded random ones; a reference-layout ``.pt`` checkpoint is
-read with ``torch.load(weights_only=True)``. Orbax train-state checkpoints
-of the JAX package are not read yet.
+weights are seeded random ones; a checkpoint is either a train state that the
+port's ``pretrain`` or ``finetune`` driver wrote (``best_model.ckpt``) or a
+reference-layout ``.pt`` file, both read with ``torch.load(weights_only=True)``
+(``utils.checkpoints.load_ase_variables``). Orbax train-state checkpoints of
+the JAX package are not read yet.
 
 Run (``--config`` needs ``pyyaml``):
   python -m zs_aac_tpu_torch.pipeline.extract --config configs/extract_data.yaml \\
@@ -47,15 +49,17 @@ __all__ = [
 
 def load_ase_encoders(config: dict, ckpt: Optional[str] = None, device="cuda"):
     """Batched ``(encode_audio(waves), encode_text(texts))`` from a config and
-    an optional reference-layout checkpoint; numpy in, fp32 numpy out.
+    an optional checkpoint (a train state of the port's training drivers or a
+    reference-layout file); numpy in, fp32 numpy out.
     ``encode_audio.pcm(pcm, sr_in, target_len)`` takes int16 PCM at the
     files' native rate and resamples on the device."""
     from zs_aac_tpu_torch.data.bert_tokenizer import WordPieceTokenizer
     from zs_aac_tpu_torch.models.ase import init_ase
-    from zs_aac_tpu_torch.models.convert import cast_floating, convert_ase
+    from zs_aac_tpu_torch.models.convert import cast_floating
     from zs_aac_tpu_torch.ops.logmel import LogMelConfig
     from zs_aac_tpu_torch.ops.resample import resample_poly_device
     from zs_aac_tpu_torch.train.contrastive import make_encode_fns
+    from zs_aac_tpu_torch.utils.checkpoints import load_ase_variables
     from zs_aac_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -65,10 +69,10 @@ def load_ase_encoders(config: dict, ckpt: Optional[str] = None, device="cuda"):
     path = ckpt or config.get("pretrain_path")
     if path and os.path.isdir(path):
         raise NotImplementedError(f"{path}: orbax train-state checkpoints are read by a "
-                                  "later slice; pass a reference-layout .pt checkpoint")
+                                  "later slice; pass a train state of the port's drivers or "
+                                  "a reference-layout .pt checkpoint")
     if path and os.path.exists(path):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        variables = convert_ase(sd.get("model", sd), cfg, device=dev)
+        variables = load_ase_variables(path, cfg, device=dev)
     else:
         variables = init_ase(cfg, seed=0, device=dev)
     if cfg.dtype == torch.bfloat16:

@@ -8,7 +8,8 @@ dicts and tuples, read back with ``weights_only=True``), with the JAX
 package's semantics: a full restore resumes params, optimizer and step; a
 model-only restore warm-starts params and batch statistics and keeps the
 fresh optimizer (the reference's ``pretrain_path`` load). The JAX package's
-orbax train-state directories are not read.
+orbax train-state directories are not read. ``load_ase_variables`` reads an
+ASE for inference from a train state or from a reference-layout checkpoint.
 
 The JAX package's ``best.pth`` / ``last.pth`` parameter snapshots (flax
 ``serialization.to_bytes``: msgpack) are read without flax or msgpack.
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 __all__ = ["msgpack_unpackb", "load_params", "save_train_state", "restore_train_state",
-           "restore_model_only"]
+           "restore_model_only", "load_ase_variables"]
 
 
 def _cpu(tree):
@@ -87,6 +88,26 @@ def restore_model_only(path: str, template):
     return dataclasses.replace(
         template, params=_like(template.params, payload["params"]),
         batch_stats=_like(template.batch_stats, payload["batch_stats"]))
+
+
+def load_ase_variables(path: str, cfg, device="cuda") -> dict:
+    """``models.ase.ASE`` variables ``{"params", "batch_stats"}`` on ``device``
+    from either file an ASE is kept in: a train state written by
+    ``save_train_state`` (its params and batch statistics, what
+    ``restore_model_only`` takes; the optimizer state and step are dropped), or
+    a reference-layout checkpoint (``HTSAT-BERT-ZS.pt``, bare or under
+    ``"model"``), converted by ``models.convert.convert_ase`` for the
+    ``ASEConfig`` ``cfg``."""
+    from zs_aac_tpu_torch.models.convert import convert_ase, tree_map
+    from zs_aac_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    payload = _load(path)
+    if "params" in payload and "batch_stats" in payload:
+        return tree_map(lambda t: t.to(dev),
+                        {"params": payload["params"], "batch_stats": payload["batch_stats"]})
+    return convert_ase(payload.get("model", payload), cfg, device=dev)
+
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
