@@ -45,7 +45,10 @@ which must pass:
    stage 1-3 shapes, shift 0 and 4, bf16 and fp32; K6 (window-attention
    backward) at the stage-4 shape in bf16 and a shifted stage-1 shape;
    drop-path scales holding 0 and 1/keep (a dropped row passes its
-   cotangent through exactly);
+   cotangent through exactly). K8 in bf16 must take the tensor-core
+   kernels and in fp32 the FMA ones, and give bitwise the same result
+   twice; the tensor-core weight-gradient product alone is held to
+   ``A^T B`` on a token count that no chunk divides;
 10. gradients through K3 and K5 (their wrappers are autograd Functions)
     equal the plain versions' autograd;
 11. the committed tiny-ASE train run (3 Adam steps, fp32) on the card's
@@ -57,8 +60,9 @@ which must pass:
     embed 1024, bf16 over fp32 parameters, B=64 ten-second waves, Adam lr
     5e-5 cosine, clip 2, spec augmentation and drop path 0.1): one warm-up
     and 5 timed steps on one batch, launch counts per step checked (K2 1,
-    K7/K8/K9 10 each, K5/K6 2 each; K7's and K5's 12 forward launches all
-    through the tensor-core kernels), the loss on the batch with fixed random
+    K7/K8/K9 10 each, K5/K6 2 each; K7's and K5's 12 forward launches, K8's
+    10 and the 44 weight-gradient products of K6, K8 and K9 all through
+    the tensor-core kernels), the loss on the batch with fixed random
     draws lower after the steps, per-leaf gradient cosine >= 0.99 and norm
     ratio within 5% of 1 against the all-plain path, samples/s, peak memory, each train kernel's time per
     call beside its bound and a ``torch.profiler`` table of one step.
@@ -799,7 +803,10 @@ def phase_train_kernels_vs_plain():
     """K7/K8/K9 at the stage 1-3 shapes (B=64, shift 0 and 4) in bf16 and fp32,
     K6 at the stage-4 shape in bf16 and at a shifted stage-1 shape, with
     drop-path scales holding 0 and 1/keep; a dropped row passes its
-    cotangent through exactly."""
+    cotangent through exactly. K8 in bf16 must take the tensor-core kernels
+    (per-token kernel and both weight products), in fp32 the FMA ones, and
+    give bitwise the same result twice; the tensor-core weight-gradient
+    product alone is held to ``A^T B`` in fp32 on a ragged token count."""
     import torch
 
     from zs_aac_tpu_torch.ops import window_attn as wa
@@ -816,7 +823,15 @@ def phase_train_kernels_vs_plain():
         out = wa.fused_swin_block_train(x, *w, bias, m1, m2, *cfg)
         out_ref, y_ref = wa.swin_block_train_plain(x, *w, bias, m1, m2, *cfg)
         ln2_fc = (w[6], w[7], w[8], w[9], w[10])
+        tc_before = wa.mlp_bwd.tc_launches
         k8 = wa.mlp_bwd(y_ref, gout, m2, *ln2_fc, 1e-6)
+        check(wa.mlp_bwd.tc_launches - tc_before == int(bf16),
+              f"K8 {name} {H}x{H}x{C} took the "
+              + ("FMA kernels, not the tensor-core ones" if bf16 else "tensor-core kernels"))
+        if shift == 4:
+            again = wa.mlp_bwd(y_ref, gout, m2, *ln2_fc, 1e-6)
+            check(all(torch.equal(a, b) for a, b in zip(k8, again)),
+                  f"K8 {name} {H}x{H}x{C}: two runs on the same inputs differ")
         r8 = wa.mlp_bwd_plain(y_ref, gout, m2, *ln2_fc, 1e-6)
         dy = r8[0]
         k9 = wa.attn_ln1_bwd(x, dy, m1, *w[:5], bias, *cfg)
@@ -857,6 +872,22 @@ def phase_train_kernels_vs_plain():
               f"max|kernel-plain| {e6:.3g} (each output within train_tol)", flush=True)
         if dtype == torch.bfloat16 and H == 8:
             worst["K6"] = e6
+    # the tensor-core weight-gradient product alone: 8200 tokens are no
+    # multiple of the 32-token step, nor of a chunk; fp32 sums of exact bf16
+    # products in another order, 1e-4 of the largest entry
+    for M, Ncol in ((96, 384), (384, 96), (192, 576), (768, 768)):
+        n_tok = 8200
+        A = torch.randn(n_tok, M, generator=g, device="cuda").bfloat16()
+        Bm = torch.randn(n_tok, Ncol, generator=g, device="cuda").bfloat16()
+        got, tc = wa._wgrad(wa._train_lib(), "chip_smoke", A, M, Bm, Ncol, n_tok, M, Ncol)
+        want = A.float().t() @ Bm.float()
+        err, tol = (got - want).abs().max().item(), train_tol(want)
+        n_chunks = wa.wgrad_plan(torch.bfloat16, n_tok, M, Ncol)[1]
+        check(tc, f"the [{n_tok}, {M}]^T [{n_tok}, {Ncol}] product missed the tensor-core kernel")
+        check(err <= tol, f"weight-gradient product {M}x{Ncol}: {err} > {tol}")
+        print(f"[train-k] weight-gradient product [{n_tok}, {M}]^T [{n_tok}, {Ncol}] bf16, "
+              f"{n_chunks} chunks, tensor cores: max|kernel - A^T B| {err:.3g} (tol {tol:.3g})",
+              flush=True)
     return worst
 
 
@@ -1093,6 +1124,7 @@ def phase_train_full_width():
                "K7": wa.fused_swin_block_train, "K8": wa.mlp_bwd, "K9": wa.attn_ln1_bwd}
     for fn in kernels.values():
         fn.launches = fn.tc_launches = 0
+    wa._wgrad.tc_launches = 0
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     losses = []
@@ -1107,14 +1139,18 @@ def phase_train_full_width():
     step_ms = start.elapsed_time(end) / steps
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per_step = {k: fn.launches / steps for k, fn in kernels.items()}
-    tc = {k: kernels[k].tc_launches / steps for k in ("K5", "K7")}
+    tc = {k: kernels[k].tc_launches / steps for k in ("K5", "K7", "K8")}
+    tc_products = wa._wgrad.tc_launches / steps
     losses = [float(loss0)] + [float(v) for v in losses]
     print(f"[train] B={B} 10 s clips + {L} tokens, bf16, seeded weights: losses {losses}; "
           f"launches per step {per_step} (expected K2 1, K5 2, K6 2, K7 10, K8 10, K9 10), "
-          f"forward launches through the tensor-core kernels {tc}", flush=True)
+          f"launches through the tensor-core kernels {tc}, weight-gradient products on the "
+          f"tensor cores {tc_products} (two each of K6, K8 and K9: 44)", flush=True)
     check(per_step == {"K2": 1, "K5": 2, "K6": 2, "K7": 10, "K8": 10, "K9": 10},
           "train-step launch counts off the main path's")
-    check(tc == {"K5": 2, "K7": 10}, "a forward launch of K7 or K5 missed the tensor-core kernels")
+    check(tc == {"K5": 2, "K7": 10, "K8": 10},
+          "a launch of K7, K5 or K8 missed the tensor-core kernels")
+    check(tc_products == 44, "a weight-gradient product of K6, K8 or K9 missed the tensor cores")
     after = fixed(state)
     print(f"[train] loss on the batch with fixed draws: {before:.6f} before the warm-up, "
           f"{after:.6f} after the 5 timed steps", flush=True)

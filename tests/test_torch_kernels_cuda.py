@@ -15,7 +15,8 @@ above the rounding floor on noise). K3/K5 outputs (~8) within 2e-4 in fp32
 2**-6 * max|out| (an accumulator's last bit can flip one bf16 rounding).
 The train kernels K6-K9 and the K3/K5 gradients: see ``_check`` (fp32 1e-4
 of the largest entry; bf16 within twice the plain version's own distance
-from its fp32 evaluation).
+from its fp32 evaluation). The split-token weight-gradient product alone
+(fp32 sums of exact bf16 products): 1e-4 of the largest entry.
 """
 
 import pytest
@@ -346,6 +347,117 @@ def test_k7_tensor_core_kernels_match_plain(B, H, C, heads, shift, m1, m2):
             assert torch.equal(y[i], x[i])
         if m2[i] == 0:
             assert torch.equal(out[i], y[i])
+
+
+# K8 in bf16 at HTSAT's stage 1-3 shapes (the tensor-core per-token kernel and
+# the tensor-core weight-gradient products): an odd batch whose tokens do not
+# fill the last chunks evenly, the train step's batch, and keep scales that
+# hold zeros (a dropped sample's rows pass their cotangent through unchanged).
+K8_TC_CASES = [(B, H, C, heads) for B in (3, 64)
+               for H, C, heads in ((64, 96, 4), (32, 192, 8), (16, 384, 16))]
+
+
+def _k8_inputs(B, H, C, heads, seed):
+    y, w, _ = _window_inputs(B, H, C, heads, torch.bfloat16, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g = torch.randn(B, H, H, C, generator=gen, device="cuda").bfloat16()
+    m2 = torch.tensor([1.25, 0.0, 1.0], device="cuda").repeat(B)[:B].contiguous()
+    return y, g, m2, (w[6], w[7], w[8], w[9], w[10])
+
+
+K8_OUTPUTS = ["dy", "dln2_s", "dln2_b", "dfc1_w", "dfc1_b", "dfc2_w", "dfc2_b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,heads", K8_TC_CASES)
+def test_k8_tensor_core_kernel_matches_plain(B, H, C, heads):
+    _need_cuda()
+    y, g, m2, ln2_fc = _k8_inputs(B, H, C, heads, seed=B + C)
+    n = (wa.mlp_bwd.launches, wa.mlp_bwd.tc_launches, wa._wgrad.tc_launches)
+    got = wa.mlp_bwd(y, g, m2, *ln2_fc, 1e-6)
+    torch.cuda.synchronize()
+    assert (wa.mlp_bwd.launches, wa.mlp_bwd.tc_launches, wa._wgrad.tc_launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 2)
+    want = wa.mlp_bwd_plain(y, g, m2, *ln2_fc, 1e-6)
+    want32 = wa.mlp_bwd_plain(*_f32([y, g]), m2, *_f32(ln2_fc), 1e-6)
+    for name, a, b, r in zip(K8_OUTPUTS, got, want, want32):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _check(name, a, b, r)
+    for i in range(B):
+        if m2[i] == 0:
+            assert torch.equal(got[0][i], g[i])
+
+
+@pytest.mark.cuda
+def test_k8_tensor_core_kernel_through_the_train_block_with_fp32_ln_parameters():
+    """``fused_swin_block_train`` with fp32 LN parameters (as the models keep
+    them): the backward hands K8 their bf16 roundings, K8 takes the
+    tensor-core kernels, and the LN2 gradients come back in fp32."""
+    _need_cuda()
+    x, w, bias, g, m1, m2 = _train_inputs(2, 32, 192, 8, torch.bfloat16, seed=7)
+    w = [t.float() if i in (0, 1, 6, 7) else t for i, t in enumerate(w)]
+    leaves = [t.clone().requires_grad_() for t in [x] + w]
+    cfg = (8, 8, 4, 1e-6)
+    n = (wa.mlp_bwd.launches, wa.mlp_bwd.tc_launches)
+    out = wa.fused_swin_block_train(*leaves, bias, m1, m2, *cfg)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert (wa.mlp_bwd.launches, wa.mlp_bwd.tc_launches) == (n[0] + 1, n[1] + 1)
+    # the residual y that the backward saw: K7's, which is deterministic
+    _, y = wa._launch(wa.fused_swin_block_train, True, x, *w[2:6], bias,
+                      *cfg[:3], ln=tuple(w[i].bfloat16() for i in (0, 1, 6, 7)),
+                      mlp_w=tuple(w[8:]), eps=1e-6, keep=(m1, m2))
+    ln2_fc = (w[6], w[7], w[8], w[9], w[10])
+    want = wa.mlp_bwd_plain(y, g, m2, *ln2_fc, 1e-6)
+    want32 = wa.mlp_bwd_plain(*_f32([y, g]), m2, *_f32(ln2_fc), 1e-6)
+    # leaves: x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w
+    for name, got, b, r in zip(K8_OUTPUTS[1:6], grads[7:12], want[1:6], want32[1:6]):
+        _check(name, got, b, r)
+    assert grads[7].dtype == grads[8].dtype == torch.float32
+    assert grads[9].dtype == grads[11].dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [96, 192, 384, 768])
+def test_wgrad_tensor_core_matches_plain(C):
+    """The split-token product at every weight gradient of K8 (dWfc1, dWfc2),
+    K9 and K6 (dWqkv, dWproj) of one stage, on 8200 tokens: no multiple of the
+    32-token step, so the last chunk is ragged. fp32 sums of exact bf16
+    products in another order: 1e-4 of the largest entry."""
+    _need_cuda()
+    n_tok = 8200
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    for M, Ncol in ((C, 4 * C), (4 * C, C), (C, 3 * C), (C, C)):
+        A = torch.randn(n_tok, M, generator=gen, device="cuda").bfloat16()
+        B = torch.randn(n_tok, Ncol, generator=gen, device="cuda").bfloat16()
+        n = wa._wgrad.tc_launches
+        got, tc = wa._wgrad(wa._train_lib(), "test", A, M, B, Ncol, n_tok, M, Ncol)
+        again, _ = wa._wgrad(wa._train_lib(), "test", A, M, B, Ncol, n_tok, M, Ncol)
+        assert tc and wa._wgrad.tc_launches == n + 2
+        _check(f"[{M}, {Ncol}]", got, A.float().t() @ B.float())
+        assert torch.equal(got, again)
+        # a strided operand: the columns M.. of a wider scratch
+        wide = torch.randn(n_tok, M + 96, generator=gen, device="cuda").bfloat16()
+        got, _ = wa._wgrad(wa._train_lib(), "test", wide[:, 96:], M + 96, B, Ncol, n_tok, M, Ncol)
+        _check(f"strided [{M}, {Ncol}]", got, wide[:, 96:].float().t() @ B.float())
+    # the column sums and fp32 stay with the FMA kernel
+    n = wa._wgrad.tc_launches
+    got, tc = wa._wgrad(wa._train_lib(), "test", None, 0, B, Ncol, n_tok, 1, Ncol)
+    assert not tc and wa._wgrad.tc_launches == n
+    _check("column sums", got.reshape(-1), B.float().sum(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,heads", [(8, 64, 96, 4), (8, 32, 192, 8), (8, 16, 384, 16)])
+def test_k8_is_deterministic(B, H, C, heads):
+    """No atomics: the partials are summed in a fixed order, so two runs on
+    the same inputs give bitwise the same seven outputs."""
+    _need_cuda()
+    y, g, m2, ln2_fc = _k8_inputs(B, H, C, heads, seed=C)
+    first = wa.mlp_bwd(y, g, m2, *ln2_fc, 1e-6)
+    second = wa.mlp_bwd(y, g, m2, *ln2_fc, 1e-6)
+    torch.cuda.synchronize()
+    for name, a, b in zip(K8_OUTPUTS, first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
