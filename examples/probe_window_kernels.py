@@ -143,7 +143,8 @@ def time_train(H, C, heads, g):
         "per-token": us(tokens),
         "dWfc1": us(lambda r: wa._wgrad(lib, "probe", yn_s, C, dh1_s, hidden, n_tok, C, hidden)),
         "dWfc2": us(lambda r: wa._wgrad(lib, "probe", hg_s, hidden, gz_s, C, n_tok, hidden, C)),
-        "dbfc2": us(lambda r: wa._wgrad(lib, "probe", None, 0, gz_s, C, n_tok, 1, C)),
+        "dbfc2 (FMA route only)": us(lambda r: wa._wgrad(lib, "probe", None, 0, gz_s, C, n_tok,
+                                                         1, C)) if plan[0] == "fma" else 0.0,
         "reduce dLN2": us(lambda r: wa._reduce(lib, "probe", ln_part)),
         "reduce dbfc1": us(lambda r: wa._reduce(lib, "probe", fc1b_part)),
     }

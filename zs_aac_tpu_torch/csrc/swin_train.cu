@@ -588,21 +588,25 @@ struct MlpBwdTc {
   float eps;
 };
 
-// Byte offsets of K8's shared memory: the bf16 row tiles yn (at 0) and gz
-// [M][C + 8], over both of which the fp32 dyn tile [M][C + 8] lies after the
-// products; the hidden tile dh [M][chunk + 8] (chunk = 64 * C / 96); the slab
-// buffers [3][32][C + 8], over which the LN2 gradient partials [row groups]
-// [2][C] lie at the end; the column sums of dh per row tile [M / 16][chunk];
-// mean and 1/sigma of the rows.
+// Byte offsets of K8's shared memory: the bf16 row tiles [M][C + 8] of y (at
+// 0) and g, which stay for the whole kernel, and of yn and gz, over both of
+// which the fp32 dyn tile [M][C + 8] lies after the products; the hidden
+// tiles hg and dh [M][chunk + 8] (chunk = 64 * C / 96); the slab buffers
+// [3][32][C + 8], over which the gradient partials [row groups][3][C] lie at
+// the end; the column sums of dh per row tile [M / 16][chunk]; mean and
+// 1/sigma of the rows.
 struct MlpSmem {
-  int gz, h, slab, colsum, stats, total;
+  int g, yn, gz, hg, dh, slab, colsum, stats, total;
 };
 __host__ __device__ inline MlpSmem mlp_smem(int M, int C) {
-  const int chunk = (C / kGroup) * kFc1, tile = M * (C + 8) * 2;
+  const int chunk = (C / kGroup) * kFc1, tile = M * (C + 8) * 2, htile = M * (chunk + 8) * 2;
   MlpSmem s;
-  s.gz = tile;
-  s.h = 2 * tile;
-  s.slab = s.h + M * (chunk + 8) * 2;
+  s.g = tile;
+  s.yn = 2 * tile;
+  s.gz = 3 * tile;
+  s.hg = 4 * tile;
+  s.dh = s.hg + htile;
+  s.slab = s.dh + htile;
   s.colsum = s.slab + kSlabStages * kSlabRows * (C + 8) * 2;
   s.stats = s.colsum + (M / 16) * chunk * 4;
   s.total = s.stats + 2 * M * 4;
@@ -617,9 +621,12 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
   const int C = p.C, hidden = p.hidden, M = p.rows, groups = C / kGroup;
   const int chunk = groups * kFc1, lda = C + 8, ldh = chunk + 8;
   const MlpSmem lay = mlp_smem(M, C);
-  bf16* yn = reinterpret_cast<bf16*>(smem);
+  bf16* yt = reinterpret_cast<bf16*>(smem);
+  bf16* gt = reinterpret_cast<bf16*>(smem + lay.g);
+  bf16* yn = reinterpret_cast<bf16*>(smem + lay.yn);
   bf16* gz = reinterpret_cast<bf16*>(smem + lay.gz);
-  bf16* dh = reinterpret_cast<bf16*>(smem + lay.h);
+  bf16* hg = reinterpret_cast<bf16*>(smem + lay.hg);
+  bf16* dh = reinterpret_cast<bf16*>(smem + lay.dh);
   bf16* slab = reinterpret_cast<bf16*>(smem + lay.slab);
   float* colsum = reinterpret_cast<float*>(smem + lay.colsum);
   float* mean = reinterpret_cast<float*>(smem + lay.stats);
@@ -632,23 +639,29 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
   const int n8 = C / 8, L = n8 <= 16 ? 16 : 32, sl = lane & (L - 1);
   const int row_groups = (kThreads / 32) * (32 / L), rg = warp * (32 / L) + lane / L;
 
-  // 1. LN2(y) and gz = g * m2 into the row tiles and to scratch.
+  // 1. The rows of y and g into their tiles, 16 bytes a thread with every
+  // copy in flight at once (rows past the last token: zeros); then LN2(y) and
+  // gz = g * m2 into the operand tiles and to scratch.
+  for (int i = threadIdx.x; i < M * n8; i += kThreads) {
+    const int r = i / n8, c = (i - r * n8) * 8;
+    const bool valid = t0 + r < p.n_tok;
+    const int64_t off = (valid ? t0 + r : 0) * C + c;
+    cp_async16_zfill(yt + r * lda + c, p.y + off, valid);
+    cp_async16_zfill(gt + r * lda + c, p.g + off, valid);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
   for (int r = rg; r < M; r += row_groups) {
     const int64_t tok = t0 + r;
     const bool valid = tok < p.n_tok;
-    float v[kLnChunks][8], gv[kLnChunks][8];
+    float v[kLnChunks][8];
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < kLnChunks; ++j) {
       const int c8 = sl + j * L;
       if (c8 < n8) {
-        uint4 yu = make_uint4(0u, 0u, 0u, 0u), gu = yu;
-        if (valid) {
-          yu = *reinterpret_cast<const uint4*>(p.y + tok * C + c8 * 8);
-          gu = *reinterpret_cast<const uint4*>(p.g + tok * C + c8 * 8);
-        }
-        unpack8(yu, v[j]);
-        unpack8(gu, gv[j]);
+        unpack8(*reinterpret_cast<const uint4*>(yt + r * lda + c8 * 8), v[j]);
 #pragma unroll
         for (int i = 0; i < 8; ++i) sum += v[j][i];
       }
@@ -670,15 +683,16 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
     for (int j = 0; j < kLnChunks; ++j) {
       const int c8 = sl + j * L;
       if (c8 < n8) {
-        float sc[8], bb[8];
+        float sc[8], bb[8], gv[8];
         unpack8(*reinterpret_cast<const uint4*>(p.ln2_s + c8 * 8), sc);
         unpack8(*reinterpret_cast<const uint4*>(p.ln2_b + c8 * 8), bb);
+        unpack8(*reinterpret_cast<const uint4*>(gt + r * lda + c8 * 8), gv);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           v[j][i] = (v[j][i] - mu) * iv * sc[i] + bb[i];
-          gv[j][i] *= m2;
+          gv[i] *= m2;
         }
-        const uint4 yv = pack8(v[j]), zv = pack8(gv[j]);
+        const uint4 yv = pack8(v[j]), zv = pack8(gv);
         *reinterpret_cast<uint4*>(yn + r * lda + c8 * 8) = yv;
         *reinterpret_cast<uint4*>(gz + r * lda + c8 * 8) = zv;
         if (valid) {
@@ -699,8 +713,6 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
   const uint32_t yn_addr = smem_addr(yn + row * lda + (lane >> 4) * 8);
   const uint32_t gz_addr = smem_addr(gz + row * lda + (lane >> 4) * 8);
   const uint32_t dh_addr = smem_addr(dh + row * ldh + (lane >> 4) * 8);
-  const int64_t tok_lo = t0 + mt * 16 + g, tok_hi = tok_lo + 8;
-  const bool lo = tok_lo < p.n_tok, hi = tok_hi < p.n_tok;
   float dyn[kGroup / 8][4] = {};
   for (int h0 = 0; h0 < hidden; h0 += chunk) {
     float f[kFc1 / 8][4] = {};
@@ -709,20 +721,21 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
                                      return p.fc1_w + static_cast<int64_t>(k) * hidden + h0 +
                                             c8 * 8;
                                    });
-    // gelu(h), rounded, to scratch; gelu'(h) stays in f
+    // gelu(h), rounded, into its tile; gelu'(h) stays in f
 #pragma unroll
     for (int nt = 0; nt < kFc1 / 8; ++nt) {
-      const int c = h0 + wn * kFc1 + nt * 8 + 2 * t;
-      const float2 bv = unpack2(*reinterpret_cast<const uint32_t*>(p.fc1_b + c));
-      float hg[4];
+      const int cl = wn * kFc1 + nt * 8 + 2 * t;
+      const float2 bv = unpack2(*reinterpret_cast<const uint32_t*>(p.fc1_b + h0 + cl));
+      float hv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float hv = f[nt][i] + ((i & 1) ? bv.y : bv.x);
-        hg[i] = gelu(hv);
-        f[nt][i] = gelu_grad(hv);
+        const float x = f[nt][i] + ((i & 1) ? bv.y : bv.x);
+        hv[i] = gelu(x);
+        f[nt][i] = gelu_grad(x);
       }
-      if (lo) *reinterpret_cast<uint32_t*>(p.hg_s + tok_lo * hidden + c) = pack2(hg[0], hg[1]);
-      if (hi) *reinterpret_cast<uint32_t*>(p.hg_s + tok_hi * hidden + c) = pack2(hg[2], hg[3]);
+      bf16* dst = hg + (mt * 16 + g) * ldh + cl;
+      *reinterpret_cast<uint32_t*>(dst) = pack2(hv[0], hv[1]);
+      *reinterpret_cast<uint32_t*>(dst + 8 * ldh) = pack2(hv[2], hv[3]);
     }
     float e[kFc1 / 8][4] = {};
     staged_gemm<kFc1 / 8, kCopies>(e, gz_addr, C, slab, odd_ld(chunk), chunk / 8, wn * kFc1,
@@ -730,8 +743,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
                                      return p.fc2_wt + static_cast<int64_t>(k) * hidden + h0 +
                                             c8 * 8;
                                    });
-    // dh in fp32: its column sums over the warp's 16 rows; rounded, into the
-    // hidden tile and to scratch
+    // dh in fp32: its column sums over the warp's 16 rows; rounded, into its tile
 #pragma unroll
     for (int nt = 0; nt < kFc1 / 8; ++nt) {
       const int cl = wn * kFc1 + nt * 8 + 2 * t;
@@ -745,14 +757,20 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
         s1 += __shfl_xor_sync(0xffffffffu, s1, o);
       }
       if (g == 0) *reinterpret_cast<float2*>(colsum + mt * chunk + cl) = make_float2(s0, s1);
-      const uint32_t u = pack2(d[0], d[1]), l = pack2(d[2], d[3]);
       bf16* dst = dh + (mt * 16 + g) * ldh + cl;
-      *reinterpret_cast<uint32_t*>(dst) = u;
-      *reinterpret_cast<uint32_t*>(dst + 8 * ldh) = l;
-      if (lo) *reinterpret_cast<uint32_t*>(p.dh1_s + tok_lo * hidden + h0 + cl) = u;
-      if (hi) *reinterpret_cast<uint32_t*>(p.dh1_s + tok_hi * hidden + h0 + cl) = l;
+      *reinterpret_cast<uint32_t*>(dst) = pack2(d[0], d[1]);
+      *reinterpret_cast<uint32_t*>(dst + 8 * ldh) = pack2(d[2], d[3]);
     }
     __syncthreads();
+    // both hidden tiles to scratch, 16 bytes a thread along the rows
+    for (int i = threadIdx.x; i < M * (chunk / 8); i += kThreads) {
+      const int r = i / (chunk / 8), c = (i - r * (chunk / 8)) * 8;
+      if (t0 + r < p.n_tok) {
+        const int64_t off = (t0 + r) * hidden + h0 + c;
+        *reinterpret_cast<uint4*>(p.hg_s + off) = *reinterpret_cast<const uint4*>(hg + r * ldh + c);
+        *reinterpret_cast<uint4*>(p.dh1_s + off) = *reinterpret_cast<const uint4*>(dh + r * ldh + c);
+      }
+    }
     for (int j = threadIdx.x; j < chunk; j += kThreads) {
       float sum = 0.f;
       for (int m = 0; m < M / 16; ++m) sum += colsum[m * chunk + j];
@@ -765,9 +783,10 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
                                      });
   }
 
-  // 3. dyn (fp32) over the row tiles; the LN2 backward, dy = g + round(du) and
-  // the LN2 gradient partials, a lane summing its channels over its rows.
-  float* dt = reinterpret_cast<float*>(smem);
+  // 3. dyn (fp32) over the operand tiles; the LN2 backward, dy = g + round(du)
+  // and the partials of dLN2 and of dbfc2 (the column sums of gz), a lane
+  // summing its channels over its rows.
+  float* dt = reinterpret_cast<float*>(smem + lay.yn);
 #pragma unroll
   for (int nt = 0; nt < kGroup / 8; ++nt) {
     float* dst = dt + (mt * 16 + g) * lda + wn * kGroup + nt * 8 + 2 * t;
@@ -775,20 +794,19 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
     *reinterpret_cast<float2*>(dst + 8 * lda) = make_float2(dyn[nt][2], dyn[nt][3]);
   }
   __syncthreads();
-  float s1[kLnChunks][8] = {}, s2[kLnChunks][8] = {};
+  float s1[kLnChunks][8] = {}, s2[kLnChunks][8] = {}, s3[kLnChunks][8] = {};
   for (int r = rg; r < M; r += row_groups) {
     const int64_t tok = t0 + r;
     const bool valid = tok < p.n_tok;
     const float mu = mean[r], iv = inv[r];
+    const float m2 = valid ? p.m2[tok / p.HW] : 0.f;
     float xh[kLnChunks][8], d[kLnChunks][8];
     float sa = 0.f, sb = 0.f;
 #pragma unroll
     for (int j = 0; j < kLnChunks; ++j) {
       const int c8 = sl + j * L;
       if (c8 < n8) {
-        uint4 yu = make_uint4(0u, 0u, 0u, 0u);
-        if (valid) yu = *reinterpret_cast<const uint4*>(p.y + tok * C + c8 * 8);
-        unpack8(yu, xh[j]);
+        unpack8(*reinterpret_cast<const uint4*>(yt + r * lda + c8 * 8), xh[j]);
         float sc[8];
         unpack8(*reinterpret_cast<const uint4*>(p.ln2_s + c8 * 8), sc);
         const float4 da = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8);
@@ -813,12 +831,13 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
     for (int j = 0; j < kLnChunks; ++j) {
       const int c8 = sl + j * L;
       if (c8 < n8) {
-        float sc[8], out[8] = {};
+        float sc[8], out[8];
         unpack8(*reinterpret_cast<const uint4*>(p.ln2_s + c8 * 8), sc);
-        if (valid) unpack8(*reinterpret_cast<const uint4*>(p.g + tok * C + c8 * 8), out);
+        unpack8(*reinterpret_cast<const uint4*>(gt + r * lda + c8 * 8), out);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const float du = (d[j][i] * sc[i] - ma - xh[j][i] * mb) * iv;
+          s3[j][i] += rnd<bf16>(out[i] * m2);
           out[i] += rnd<bf16>(du);
           s1[j][i] += d[j][i] * xh[j][i];
           s2[j][i] += d[j][i];
@@ -827,23 +846,24 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_bwd_kernel(MlpBwdTc p) {
       }
     }
   }
-  float* psum = reinterpret_cast<float*>(slab);  // [row_groups][2][C]
+  float* psum = reinterpret_cast<float*>(slab);  // [row_groups][3][C]
 #pragma unroll
   for (int j = 0; j < kLnChunks; ++j) {
     const int c8 = sl + j * L;
     if (c8 < n8) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        psum[(rg * 2) * C + c8 * 8 + i] = s1[j][i];
-        psum[(rg * 2 + 1) * C + c8 * 8 + i] = s2[j][i];
+        psum[(rg * 3) * C + c8 * 8 + i] = s1[j][i];
+        psum[(rg * 3 + 1) * C + c8 * 8 + i] = s2[j][i];
+        psum[(rg * 3 + 2) * C + c8 * 8 + i] = s3[j][i];
       }
     }
   }
   __syncthreads();
-  float* part = p.ln_part + static_cast<int64_t>(blockIdx.x) * 2 * C;
-  for (int idx = threadIdx.x; idx < 2 * C; idx += kThreads) {
+  float* part = p.ln_part + static_cast<int64_t>(blockIdx.x) * 3 * C;
+  for (int idx = threadIdx.x; idx < 3 * C; idx += kThreads) {
     float sum = 0.f;
-    for (int q = 0; q < row_groups; ++q) sum += psum[q * 2 * C + idx];
+    for (int q = 0; q < row_groups; ++q) sum += psum[q * 3 * C + idx];
     part[idx] = sum;
   }
 }
@@ -1013,7 +1033,8 @@ extern "C" int swin_mlp_bwd(int dtype, const void* y, const void* g, const void*
 // 1, 2 or 4, hidden a multiple of 64 * groups, `rows` = 128 / groups tokens a
 // block (n_tok need not be a multiple of it). fc2_wt [C, hidden] and fc1_wt
 // [hidden, C] are the transposed weights. Scratch as for swin_mlp_bwd, with
-// ceil(n_tok / rows) rows of partials.
+// ceil(n_tok / rows) rows of partials, and ln_part [.., 3, C]: its third row
+// holds the column sums of gz (the fc2 bias gradient's partials).
 extern "C" int swin_mlp_bwd_tc(const void* y, const void* g, const void* m2, const void* ln2_s,
                                const void* ln2_b, const void* fc1_w, const void* fc1_b,
                                const void* fc2_wt, const void* fc1_wt, void* dy, void* yn_s,

@@ -666,7 +666,8 @@ def _mlp_bwd_tokens(name, lib, plan, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w
     """K8's per-token kernel, the one ``plan`` (``mlp_bwd_plan``) names: dy and
     the scratch the weight gradients are made from: (dy, yn_s, gz_s [n_tok, C],
     hg_s, dh1_s [n_tok, hidden] in y's dtype, ln_part [blocks, 2C], fc1b_part
-    [blocks, hidden] fp32)."""
+    [blocks, hidden] fp32). The tensor-core kernel also sums gz over its rows:
+    its ln_part is [blocks, 3C], the last C the fc2 bias gradient's partials."""
     B, H, W, C = y.shape
     dt = y.dtype
     hidden = fc1_w.shape[1]
@@ -681,7 +682,7 @@ def _mlp_bwd_tokens(name, lib, plan, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w
     dy = torch.empty_like(y)
     yn_s, gz_s = new(n_tok, C), new(n_tok, C)
     hg_s, dh1_s = new(n_tok, hidden), new(n_tok, hidden)
-    ln_part = new(blocks, 2 * C, dtype=torch.float32)
+    ln_part = new(blocks, (3 if plan[0] == "tc" else 2) * C, dtype=torch.float32)
     fc1b_part = new(blocks, hidden, dtype=torch.float32)
     head = (y.data_ptr(), g.data_ptr(), m2.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(),
             fc1_w.data_ptr(), fc1_b.data_ptr())
@@ -722,8 +723,11 @@ def _mlp_bwd_launch(name, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps):
     sums = _reduce(lib, name, ln_part)
     dfc1_w, tc1 = _wgrad(lib, name, yn_s, C, dh1_s, hidden, n_tok, C, hidden)
     dfc2_w, tc2 = _wgrad(lib, name, hg_s, hidden, gz_s, C, n_tok, hidden, C)
-    return ((dy, sums[:C], sums[C:], dfc1_w, _reduce(lib, name, fc1b_part), dfc2_w,
-             _wgrad(lib, name, None, 0, gz_s, C, n_tok, 1, C)[0].reshape(-1)),
+    if plan[0] == "tc":
+        dfc2_b = sums[2 * C:]
+    else:
+        dfc2_b = _wgrad(lib, name, None, 0, gz_s, C, n_tok, 1, C)[0].reshape(-1)
+    return ((dy, sums[:C], sums[C:2 * C], dfc1_w, _reduce(lib, name, fc1b_part), dfc2_w, dfc2_b),
             plan[0] == "tc" and tc1 and tc2)
 
 
