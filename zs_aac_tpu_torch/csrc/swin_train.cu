@@ -26,7 +26,7 @@
 // Design. The TPU kernels accumulate every weight gradient across a
 // sequential grid; here blocks run in parallel, so each kernel is split:
 // - a per-window (K6/K9) or per-row-group (K8) kernel does the per-token
-//   work as K3 does (one block per 8x8 window, one head at a time, the
+//   work as K3 does (K6/K9: one block per 8x8 window, one head at a time, the
 //   cyclic shift folded into the index arithmetic on x, on the cotangents
 //   and on dx alike) and writes the operands of the weight-gradient products
 //   (LN'd input, go, o, dqkv; LN2(y), gz, gelu(h), dh) to scratch in the
@@ -37,11 +37,48 @@
 //   accumulated over 64-wide chunks in fp32 shared memory, then K9's LN1
 //   backward and residual;
 // - every weight gradient is a hand-written split-token product: each block
-//   sums A^T B over one 64x64 output tile and one chunk of tokens into an
-//   fp32 partial; a reduction kernel then adds the partials in a fixed
-//   order. No atomics: results are deterministic run to run.
-// Products are CUDA-core FMAs (head dim 24, as in K3); per-head buffers stay
-// under the shared-memory limit up to C=768 in bf16 and C=384 in fp32.
+//   sums A^T B over one output tile and one chunk of tokens into an fp32
+//   partial; a reduction kernel then adds the partials in a fixed order. No
+//   atomics: results are deterministic run to run.
+//
+// Two instantiations of K8's per-token kernel and of the split-token product,
+// chosen by shape in ops/window_attn.py::mlp_bwd_plan and ::wgrad_plan:
+//
+// 1. The tensor-core kernels (namespace tc; bf16). K8 at C = 96, 192, 384
+//    with hidden = 4C (HTSAT's stages 1-3); the product where both output
+//    dimensions are multiples of 96 (every weight gradient of K6, K8 and K9
+//    at HTSAT's widths).
+//    - K8 (mlp_bwd_kernel): the forward's layout (window_attn.cu, namespace
+//      tc): a warp owns 16 rows and one column group of 96 channels, a block
+//      is 8 warps = (M / 16) x (C / 96) over M = 128, 64 or 32 consecutive
+//      tokens. The rows of y and g arrive once, 16 bytes a thread with every
+//      copy in flight, and stay in shared memory for the LN2 backward and
+//      the residual at the end. Per hidden chunk of 64 * C / 96 columns,
+//      three mma.sync products on staged weight slabs (swin_common.cuh::
+//      staged_gemm): h = LN2(y) Wfc1 (gelu(h) rounded into a tile, gelu'(h)
+//      kept in registers in fp32), e = gz Wfc2^T (dh = e gelu'(h): column
+//      sums in fp32 by quad shuffles, then rounded into a tile), dyn += dh
+//      Wfc1^T in registers across the chunks (48 a thread). The wrapper
+//      passes Wfc2^T and Wfc1^T as copies made once a call, so every product
+//      stages rows along its output columns as the forward does. Both hidden
+//      tiles leave for scratch 16 bytes a thread along the rows. dyn (fp32)
+//      then overlays the operand tiles for the LN2 backward, where a lane
+//      also sums its channels of dyn, dyn xhat and gz over its rows: the
+//      partials of dLN2 and of the fc2 bias gradient. 32 + 32 + 48
+//      accumulators a thread: 256 threads and one block an SM, no spills.
+//    - The product (tc::wgrad_kernel): tokens are the k direction. 96 x 96
+//      output tiles (they divide every width: nothing is padded), 4 warps of
+//      48 x 48, both operands' tiles [32 tokens][96 columns] through three
+//      shared-memory buffers by 16-byte cp.async (zeros past the chunk's
+//      end), and both fragments by ldmatrix.trans: A's tile is [k][m], so
+//      its transpose is the row-major A operand. At HTSAT's shapes it runs
+//      at the rate the scratch can be read at.
+// 2. The FMA kernels (mlp_bwd_a, wgrad_kernel; fp32, whose fixtures TF32
+//    would break, bf16 at other widths, and the column sums, which are bound
+//    by bytes): fp32 channel-major shared tiles, 64 x 64 output tiles,
+//    CUDA-core FMAs through block_gemm, as K6 and K9 (head dim 24, as in K3);
+//    per-head buffers stay under the shared-memory limit up to C=768 in bf16
+//    and C=384 in fp32.
 //
 // Numerics (the JAX kernels' rounding points): in the activation dtype T
 // these round: go, do, dq (then dq * scale), dk, dv, dxn, gz, gelu(h), dh,
