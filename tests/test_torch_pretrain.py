@@ -110,8 +110,8 @@ def test_pretrain_resume_and_finetune_drivers(tmp_path, monkeypatch):
 
 
 def test_extract_reads_the_pretrain_drivers_checkpoint(tmp_path, monkeypatch):
-    """pretrain -> extract: the driver's ``best_model.ckpt`` loads in
-    ``load_ase_encoders`` and encodes with the trained parameters."""
+    """pretrain -> extract: the ``best_model.ckpt`` that ``pretrain.main`` writes
+    loads in ``load_ase_encoders`` and encodes with the trained parameters."""
     from zs_aac_tpu_torch.pipeline.extract import load_ase_encoders
 
     monkeypatch.setenv("WANDB_MODE", "disabled")
