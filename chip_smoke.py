@@ -803,10 +803,11 @@ def phase_train_kernels_vs_plain():
     """K7/K8/K9 at the stage 1-3 shapes (B=64, shift 0 and 4) in bf16 and fp32,
     K6 at the stage-4 shape in bf16 and at a shifted stage-1 shape, with
     drop-path scales holding 0 and 1/keep; a dropped row passes its
-    cotangent through exactly. K8 in bf16 must take the tensor-core kernels
-    (per-token kernel and both weight products), in fp32 the FMA ones, and
-    give bitwise the same result twice; the tensor-core weight-gradient
-    product alone is held to ``A^T B`` in fp32 on a ragged token count."""
+    cotangent through exactly. K8 and K9 in bf16 must take the tensor-core
+    kernels (K8: per-token kernel and both weight products; K9: the
+    per-window and dx kernels), in fp32 the FMA ones, and give bitwise the
+    same result twice; the tensor-core weight-gradient product alone is held
+    to ``A^T B`` in fp32 on a ragged token count."""
     import torch
 
     from zs_aac_tpu_torch.ops import window_attn as wa
@@ -834,7 +835,14 @@ def phase_train_kernels_vs_plain():
                   f"K8 {name} {H}x{H}x{C}: two runs on the same inputs differ")
         r8 = wa.mlp_bwd_plain(y_ref, gout, m2, *ln2_fc, 1e-6)
         dy = r8[0]
+        tc_before = wa.attn_ln1_bwd.tc_launches
         k9 = wa.attn_ln1_bwd(x, dy, m1, *w[:5], bias, *cfg)
+        check(wa.attn_ln1_bwd.tc_launches - tc_before == int(bf16),
+              f"K9 {name} {H}x{H}x{C} shift={shift} took the "
+              + ("FMA kernels, not the tensor-core ones" if bf16 else "tensor-core kernels"))
+        again = wa.attn_ln1_bwd(x, dy, m1, *w[:5], bias, *cfg)
+        check(all(torch.equal(a, b) for a, b in zip(k9, again)),
+              f"K9 {name} {H}x{H}x{C} shift={shift}: two runs on the same inputs differ")
         r9 = wa.attn_ln1_bwd_plain(x, dy, m1, *w[:5], bias, *cfg)
         if bf16:
             o32 = wa.swin_block_train_plain(*_f32([x] + w), bias, m1, m2, *cfg)[:1]
@@ -892,13 +900,32 @@ def phase_train_kernels_vs_plain():
 
 
 def phase_grad_repair():
-    """Gradients through K3 (the autograd of the plain block) and K5 (K6) on
-    the card equal those of the plain versions' autograd."""
+    """Gradients through K2 (the VJP of the plain log-mel), K3 (the autograd
+    of the plain block) and K5 (K6) on the card equal those of the plain
+    versions' autograd."""
     import torch
 
     from zs_aac_tpu_torch.ops import window_attn as wa
+    from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel, log_mel_plain
 
     g = torch.Generator(device="cuda").manual_seed(9)
+    # d(wave) through K2, B=4 ten-second clips, fp32: the backward runs the
+    # same plain ops as the plain version's autograd on the same wave, so the
+    # two agree up to the libraries' summation order: 1e-6 of the largest entry
+    mel_cfg = LogMelConfig.from_dict(TRAIN_CONFIG["audio_args"])
+    wave = torch.randn(4, 10 * 32000, generator=g, device="cuda") * 0.1
+    leaf, plain_leaf = wave.clone().requires_grad_(), wave.clone().requires_grad_()
+    n = log_mel.launches
+    out = log_mel(leaf, mel_cfg)
+    cot = torch.randn(out.shape, generator=g, device="cuda")
+    got = torch.autograd.grad(out, leaf, cot)[0]
+    want = torch.autograd.grad(log_mel_plain(plain_leaf, mel_cfg), plain_leaf, cot)[0]
+    torch.cuda.synchronize()
+    err, tol = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
+    check(log_mel.launches == n + 1, f"K2 launches {log_mel.launches - n} for one call")
+    check(err <= tol, f"K2 d(wave): {err} > {tol}")
+    print(f"[repair] fp32 B=4 10 s waves: d(wave) through K2 carried (max|diff| to the plain "
+          f"autograd {err:.3g}, tol {tol:.3g})", flush=True)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         x, w, bias, gout, _, _ = _train_case(8, 32, 192, 8, dtype, g)
@@ -1139,7 +1166,7 @@ def phase_train_full_width():
     step_ms = start.elapsed_time(end) / steps
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per_step = {k: fn.launches / steps for k, fn in kernels.items()}
-    tc = {k: kernels[k].tc_launches / steps for k in ("K5", "K7", "K8")}
+    tc = {k: kernels[k].tc_launches / steps for k in ("K5", "K7", "K8", "K9")}
     tc_products = wa._wgrad.tc_launches / steps
     losses = [float(loss0)] + [float(v) for v in losses]
     print(f"[train] B={B} 10 s clips + {L} tokens, bf16, seeded weights: losses {losses}; "
@@ -1148,8 +1175,8 @@ def phase_train_full_width():
           f"tensor cores {tc_products} (two each of K6, K8 and K9: 44)", flush=True)
     check(per_step == {"K2": 1, "K5": 2, "K6": 2, "K7": 10, "K8": 10, "K9": 10},
           "train-step launch counts off the main path's")
-    check(tc == {"K5": 2, "K7": 10, "K8": 10},
-          "a launch of K7, K5 or K8 missed the tensor-core kernels")
+    check(tc == {"K5": 2, "K7": 10, "K8": 10, "K9": 10},
+          "a launch of K5, K7, K8 or K9 missed the tensor-core kernels")
     check(tc_products == 44, "a weight-gradient product of K6, K8 or K9 missed the tensor cores")
     after = fixed(state)
     print(f"[train] loss on the batch with fixed draws: {before:.6f} before the warm-up, "

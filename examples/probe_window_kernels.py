@@ -12,14 +12,16 @@ versions at HTSAT's four stage shapes (B = 2, 3 and 64, shift 0 and 4, keep
 scales holding zeros) with ``chip_smoke.py``'s tolerances, and times K3 and
 K5 per stage at B = 64 with CUDA events (``chip_smoke.timed_ms``). About 40 s.
 
-With ``--train`` it builds ``swin_train.cu`` instead, holds K8 (B = 3 and 64,
-stages 1-3, bf16 and fp32) and the split-token weight-gradient product (the
-shapes of K6, K8 and K9, a ragged token count) against their plain versions,
-and times, per stage at B = 64 in bf16, the parts of K8 (the per-token
-kernel, each weight product, the reductions), K8 whole beside its plain
-version, K9 and, at stage 4, K6. ``--fma`` sends bf16 through the FMA
-kernels, whatever ``mlp_bwd_plan`` and ``wgrad_plan`` say, to time them
-beside the tensor-core ones. About 60 s.
+With ``--train`` it builds ``swin_train.cu`` instead, holds K8 and K9 (B = 3
+and 64, stages 1-3, bf16 and fp32; K9 at shift 0 and 4, bitwise equal run to
+run) and the split-token weight-gradient product (the shapes of K6, K8 and
+K9, a ragged token count) against their plain versions, and times, per stage
+at B = 64 in bf16, the parts of K8 (the per-token kernel, each weight
+product, the reductions) and of K9 (the per-window kernel, the dx kernel, each
+weight product and column sum, the reductions), K8 and K9 whole beside their
+plain versions and, at stage 4, K6. ``--fma`` sends bf16 through the FMA
+kernels, whatever ``mlp_bwd_plan``, ``attn_bwd_plan`` and ``wgrad_plan`` say,
+to time them beside the tensor-core ones. About 90 s.
 
 Exit code 1 if a case disagrees.
 """
@@ -108,6 +110,31 @@ def check_k8(B, H, C, heads, dtype, g):
     return not bad
 
 
+def check_k9(B, H, C, heads, shift, dtype, g):
+    x, w, bias = cs._window_case(B, H, C, heads, 8, dtype, g)
+    gout = torch.randn(B, H, H, C, generator=g, device="cuda").to(dtype)
+    m1 = torch.tensor([1 / 0.9, 0.0, 1.0], device="cuda").repeat(B)[:B].contiguous()
+    cfg = (8, heads, shift, 1e-6)
+    got = wa.attn_ln1_bwd(x, gout, m1, *w[:5], bias, *cfg)
+    again = wa.attn_ln1_bwd(x, gout, m1, *w[:5], bias, *cfg)
+    want = wa.attn_ln1_bwd_plain(x, gout, m1, *w[:5], bias, *cfg)
+    refs = [None] * 8
+    if dtype == torch.bfloat16:
+        refs = wa.attn_ln1_bwd_plain(*cs._f32([x, gout]), m1, *cs._f32(w[:5]), bias, *cfg)
+    torch.cuda.synchronize()
+    names = ["dx", "dln1_s", "dln1_b", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias"]
+    errs = {n: ((a.float() - b.float()).abs().max().item(), cs.train_tol(b, r))
+            for n, a, b, r in zip(names, got, want, refs)}
+    bad = [n for n, (e, tol) in errs.items() if not e <= tol]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    dropped = torch.equal(got[0][1], gout[1]) if B > 1 else True
+    print(f"K9 {str(dtype)[6:]} B={B} {H}x{H}x{C} shift={shift}: "
+          + ", ".join(f"{n} {e:.3g}/{tol:.3g}" for n, (e, tol) in errs.items())
+          + ("" if same else "  RUN TO RUN DIFFERS") + ("" if dropped else "  DROPPED ROW MOVED")
+          + (f"  DISAGREES: {bad}" if bad else ""), flush=True)
+    return not bad and same and dropped
+
+
 def check_wgrad(n_tok, M, Ncol, g):
     A = torch.randn(n_tok, M, generator=g, device="cuda").bfloat16()
     B = torch.randn(n_tok, Ncol, generator=g, device="cuda").bfloat16()
@@ -123,8 +150,8 @@ def check_wgrad(n_tok, M, Ncol, g):
 
 
 def time_train(H, C, heads, g):
-    """The parts of K8 at B = 64 in bf16, then K8, its plain version, K9 (K6
-    at stage 4) per call."""
+    """The parts of K8 and of K9 at B = 64 in bf16, then K8, K9 and their
+    plain versions (K6 at stage 4) per call."""
     us = lambda fn, reps=5: (fn(0), cs.timed_ms(fn, reps) * 1e3)[1]
     x, w, bias, gout, m1, m2 = cs._train_case(64, H, C, heads, torch.bfloat16, g)
     cfg = (8, heads, 4, 1e-6)
@@ -150,23 +177,44 @@ def time_train(H, C, heads, g):
     }
     k8 = us(lambda r: wa.mlp_bwd(x, gout, m2, *ln2_fc, 1e-6))
     p8 = us(lambda r: wa.mlp_bwd_plain(x, gout, m2, *ln2_fc, 1e-6))
+    plan9 = wa.attn_bwd_plan(torch.bfloat16, 64, C, C // heads, True)
+    args9 = ("probe", lib, plan9, x, gout, m1, (w[0], w[1]), *w[2:5], bias, *cfg)
+    scratch = wa._attn_bwd_tokens(*args9)
+    _, xn_s, go_s, o_s, dqkv_s, dbias_part, ln_part = scratch
+    parts9 = {
+        "per-window": us(lambda r: wa._attn_bwd_tokens(*args9, parts=1, scratch=scratch)),
+        "dx": us(lambda r: wa._attn_bwd_tokens(*args9, parts=2, scratch=scratch)),
+        "dWqkv": us(lambda r: wa._wgrad(lib, "probe", xn_s, C, dqkv_s, 3 * C, n_tok, C, 3 * C)),
+        "dWproj": us(lambda r: wa._wgrad(lib, "probe", o_s, C, go_s, C, n_tok, C, C)),
+        # the tensor-core dx kernel sums go and dqkv itself
+        "dbqkv + dbproj (FMA route only)": us(lambda r: (
+            wa._wgrad(lib, "probe", None, 0, dqkv_s, 3 * C, n_tok, 1, 3 * C),
+            wa._wgrad(lib, "probe", None, 0, go_s, C, n_tok, 1, C))) if plan9[0] == "fma" else 0.0,
+        "reduce dbias": us(lambda r: wa._reduce(lib, "probe", dbias_part)),
+        "reduce dLN1": us(lambda r: wa._reduce(lib, "probe", ln_part)),
+    }
     k9 = us(lambda r: wa.attn_ln1_bwd(x, gout, m1, *w[:5], bias, *cfg))
     p9 = us(lambda r: wa.attn_ln1_bwd_plain(x, gout, m1, *w[:5], bias, *cfg))
     print(f"{line} K8 parts (" + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
-          + f") sum {sum(parts.values()):.1f} us; K8 {k8:.1f} us, plain {p8:.1f} us; "
-          f"K9 {k9:.1f} us, plain {p9:.1f} us", flush=True)
+          + f") sum {sum(parts.values()):.1f} us; K8 {k8:.1f} us, plain {p8:.1f} us", flush=True)
+    print(f"{line} K9 ({plan9[0]}) parts (" + ", ".join(f"{k} {v:.1f}" for k, v in parts9.items())
+          + f") sum {sum(parts9.values()):.1f} us; K9 {k9:.1f} us, plain {p9:.1f} us", flush=True)
 
 
 def main_train(flags):
     if "--fma" in flags:
         flags.remove("--fma")
-        tc_mlp, tc_wgrad = wa.mlp_bwd_plan, wa.wgrad_plan
+        tc_mlp, tc_attn, tc_wgrad = wa.mlp_bwd_plan, wa.attn_bwd_plan, wa.wgrad_plan
         wa.mlp_bwd_plan = lambda dtype, *a: tc_mlp(torch.float32, *a)
+        wa.attn_bwd_plan = lambda dtype, *a: tc_attn(torch.float32, *a)
         wa.wgrad_plan = lambda dtype, *a: tc_wgrad(torch.float32, *a)
     build("swin_train", flags)
     g = torch.Generator(device="cuda").manual_seed(6)
     ok = all([check_k8(B, H, C, heads, dtype, g) for dtype in (torch.bfloat16, torch.float32)
               for B in (3, 64) for H, C, heads in cs.STAGES])
+    ok &= all([check_k9(B, H, C, heads, shift, dtype, g)
+               for dtype in (torch.bfloat16, torch.float32) for B in (3, 64)
+               for H, C, heads in cs.STAGES for shift in (0, 4)])
     shapes = sorted({s for _, C, _ in STAGES
                      for s in ((C, 4 * C), (4 * C, C), (C, 3 * C), (C, C))})
     ok &= all([check_wgrad(n_tok, M, Ncol, g) for M, Ncol in shapes
@@ -174,6 +222,7 @@ def main_train(flags):
     for H, C, heads in STAGES:
         time_train(H, C, heads, g)
     print(f"tensor-core launches: K8 {wa.mlp_bwd.tc_launches} of {wa.mlp_bwd.launches}, "
+          f"K9 {wa.attn_ln1_bwd.tc_launches} of {wa.attn_ln1_bwd.launches}, "
           f"weight products {wa._wgrad.tc_launches}")
     print("all cases agree" if ok else "SOME CASES DISAGREE")
     sys.exit(0 if ok else 1)

@@ -15,7 +15,8 @@ above the rounding floor on noise). K3/K5 outputs (~8) within 2e-4 in fp32
 2**-6 * max|out| (an accumulator's last bit can flip one bf16 rounding).
 The train kernels K6-K9 and the K3/K5 gradients: see ``_check`` (fp32 1e-4
 of the largest entry; bf16 within twice the plain version's own distance
-from its fp32 evaluation). The split-token weight-gradient product alone
+from its fp32 evaluation). K2's gradient (the VJP of the plain version on
+the same wave): 1e-6 of the largest entry. The split-token weight-gradient product alone
 (fp32 sums of exact bf16 products): 1e-4 of the largest entry.
 """
 
@@ -113,6 +114,28 @@ def test_k2_matches_plain(B, T):
     torch.testing.assert_close(got, lm.log_mel_plain(w, cfg), atol=2e-3, rtol=0)
     silence = lm.log_mel(torch.zeros(1, 4000, device="cuda"), cfg)
     assert (silence == -100.0).all()
+
+
+@pytest.mark.cuda
+def test_k2_wrapper_carries_gradient_on_cuda():
+    """A wave that requires grad gets d(wave) through K2 on the card: the
+    output has a ``grad_fn`` and the gradient is the VJP of ``log_mel_plain``
+    on the same wave, one K2 launch and none in the backward. Both sides run
+    the same plain ops on the same device: within 1e-6 of the largest entry."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    w = torch.randn(2, 16001, generator=g, device="cuda") * 0.1
+    cfg = lm.LogMelConfig()
+    leaf, plain = w.clone().requires_grad_(), w.clone().requires_grad_()
+    n = lm.log_mel.launches
+    out = lm.log_mel(leaf, cfg)
+    assert out.grad_fn is not None and lm.log_mel.launches == n + 1
+    cot = torch.randn(out.shape, generator=g, device="cuda")
+    got = torch.autograd.grad(out, leaf, cot)[0]
+    want = torch.autograd.grad(lm.log_mel_plain(plain, cfg), plain, cot)[0]
+    torch.cuda.synchronize()
+    assert lm.log_mel.launches == n + 1
+    torch.testing.assert_close(got, want, atol=1e-6 * want.abs().max().item(), rtol=0)
 
 
 def _window_inputs(B, H, C, heads, dtype, hidden=None, window=8, seed=0):
@@ -457,6 +480,84 @@ def test_k8_is_deterministic(B, H, C, heads):
     second = wa.mlp_bwd(y, g, m2, *ln2_fc, 1e-6)
     torch.cuda.synchronize()
     for name, a, b in zip(K8_OUTPUTS, first, second):
+        assert torch.equal(a, b), name
+
+
+# K9 in bf16 at HTSAT's stage 1-3 shapes (the tensor-core per-window and dx
+# kernels, and the tensor-core weight-gradient products): an odd batch (an
+# odd count of windows for the two-window blocks of stage 1), the train
+# step's batch, shift 0 and 4, and a keep scale m1 that holds a zero (a
+# dropped sample's rows pass dy through unchanged).
+K9_TC_CASES = [(B, H, C, heads, shift) for B in (3, 64)
+               for H, C, heads in ((64, 96, 4), (32, 192, 8), (16, 384, 16)) for shift in (0, 4)]
+K9_OUTPUTS = ["dx", "dln1_s", "dln1_b", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias"]
+
+
+def _k9_inputs(B, H, C, heads, seed):
+    x, w, bias = _window_inputs(B, H, C, heads, torch.bfloat16, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(B, H, H, C, generator=gen, device="cuda").bfloat16()
+    m1 = torch.tensor([1.25, 0.0, 1.0], device="cuda").repeat(B)[:B].contiguous()
+    return x, dy, m1, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,heads,shift", K9_TC_CASES)
+def test_k9_tensor_core_kernel_matches_plain(B, H, C, heads, shift):
+    """The direct call, then (at B = 3) the train block's backward with fp32
+    LN parameters, as the models keep them: K9 gets their bf16 roundings,
+    takes the tensor-core kernels, and the LN1 gradients come back in fp32."""
+    _need_cuda()
+    x, dy, m1, w, bias = _k9_inputs(B, H, C, heads, seed=B + C + shift)
+    cfg = (8, heads, shift, 1e-6)
+    fn = wa.attn_ln1_bwd
+    n = (fn.launches, fn.tc_launches, wa._wgrad.tc_launches)
+    got = fn(x, dy, m1, *w[:5], bias, *cfg)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches, wa._wgrad.tc_launches) == (n[0] + 1, n[1] + 1, n[2] + 2)
+    want = wa.attn_ln1_bwd_plain(x, dy, m1, *w[:5], bias, *cfg)
+    want32 = wa.attn_ln1_bwd_plain(*_f32([x, dy]), m1, *_f32(w[:5]), bias, *cfg)
+    for name, a, b, r in zip(K9_OUTPUTS, got, want, want32):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _check(name, a, b, r)
+    for i in range(B):
+        if m1[i] == 0:
+            assert torch.equal(got[0][i], dy[i])
+    if B != 3:
+        return
+    w = [t.float() if i in (0, 1, 6, 7) else t for i, t in enumerate(w)]
+    m2 = m1.flip(0).contiguous()
+    leaves = [t.clone().requires_grad_() for t in [x] + w]
+    n = fn.tc_launches
+    out = wa.fused_swin_block_train(*leaves, bias, m1, m2, *cfg)
+    grads = torch.autograd.grad(out, leaves, dy)
+    assert fn.tc_launches == n + 1
+    # the dy that K9 saw: K8's on K7's y, both deterministic
+    ln = tuple(w[i].bfloat16() for i in (0, 1, 6, 7))
+    _, y = wa._launch(wa.fused_swin_block_train, True, x, *w[2:6], bias, *cfg[:3], ln=ln,
+                      mlp_w=tuple(w[8:]), eps=1e-6, keep=(m1, m2))
+    dy9 = wa.mlp_bwd(y, dy, m2, *ln[2:], w[8], w[9], w[10], 1e-6)[0]
+    want = wa.attn_ln1_bwd_plain(x, dy9, m1, *ln[:2], *w[2:5], bias, *cfg)
+    want32 = wa.attn_ln1_bwd_plain(*_f32([x, dy9]), m1, *_f32(ln[:2] + tuple(w[2:5])), bias,
+                                   *cfg)
+    # leaves: x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ...
+    for name, a, b, r in zip(K9_OUTPUTS[:7], grads[:7], want[:7], want32[:7]):
+        _check(f"block {name}", a, b, r)
+    assert grads[1].dtype == grads[2].dtype == torch.float32
+    assert grads[3].dtype == grads[5].dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,heads", [(8, 64, 96, 4), (8, 32, 192, 8), (8, 16, 384, 16)])
+def test_k9_is_deterministic(B, H, C, heads):
+    """No atomics: the dbias, LN1 and bias partials are summed in a fixed
+    order, so two runs on the same inputs give bitwise the same outputs."""
+    _need_cuda()
+    x, dy, m1, w, bias = _k9_inputs(B, H, C, heads, seed=C)
+    first = wa.attn_ln1_bwd(x, dy, m1, *w[:5], bias, 8, heads, 4, 1e-6)
+    second = wa.attn_ln1_bwd(x, dy, m1, *w[:5], bias, 8, heads, 4, 1e-6)
+    torch.cuda.synchronize()
+    for name, a, b in zip(K9_OUTPUTS, first, second):
         assert torch.equal(a, b), name
 
 

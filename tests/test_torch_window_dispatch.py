@@ -1,9 +1,10 @@
 """Which instantiation of ``csrc/window_attn.cu`` a launch of K3, K5 or K7
-takes, which per-token kernel of ``csrc/swin_train.cu`` a launch of K8 takes
-and which split-token weight-gradient kernel a product of K6, K8 or K9
-takes: ``ops.window_attn.window_kernel_plan``, ``mlp_bwd_plan`` and
-``wgrad_plan`` are rules on shapes alone, so they are held here on the CPU. bf16 at HTSAT's four stage shapes goes to the
-tensor-core kernels; fp32 (whose fixtures TF32 would break) and every other
+takes, which per-token kernels of ``csrc/swin_train.cu`` a launch of K8 or
+of K9 (and K6) takes and which split-token weight-gradient kernel a product
+of K6, K8 or K9 takes: ``ops.window_attn.window_kernel_plan``,
+``mlp_bwd_plan``, ``attn_bwd_plan`` and ``wgrad_plan`` are rules on shapes
+alone, so they are held here on the CPU. bf16 at HTSAT's stage shapes goes to
+the tensor-core kernels; fp32 (whose fixtures TF32 would break) and every other
 shape to the FMA kernel; what neither takes is refused with the messages the
 card-only ``test_window_kernels_refuse_what_they_do_not_take`` expects. The
 CPU route of the wrappers takes no kernel and raises neither count.
@@ -190,7 +191,8 @@ def test_cpu_route_of_the_train_backward_raises_no_count():
     bias = torch.zeros(1, 1, heads, 64, 64)
     keep = torch.tensor([1.0, 0.0])
     counts = lambda: (wa.mlp_bwd.launches, wa.mlp_bwd.tc_launches, wa.attn_ln1_bwd.launches,
-                      wa.window_attention_bwd.launches, wa._wgrad.tc_launches)
+                      wa.attn_ln1_bwd.tc_launches, wa.window_attention_bwd.launches,
+                      wa._wgrad.tc_launches)
     before = counts()
     k8 = wa.mlp_bwd(x, g, keep, *w[6:11], 1e-6)
     k9 = wa.attn_ln1_bwd(x, k8[0], keep, *w[:5], bias, 8, heads, 0, 1e-6)
@@ -205,3 +207,50 @@ def test_cpu_route_of_the_train_backward_raises_no_count():
     out = wa.fused_swin_block_train(*leaves, bias, keep, keep, 8, heads, 0, 1e-6)
     out.sum().backward()
     assert counts() == before and leaves[9].grad.shape == (C, 4 * C)
+
+
+# -- the train backward: K9's (and K6's) per-token kernels --------------------------
+
+
+@pytest.mark.parametrize("stage", sorted(TRAIN_STAGES))
+def test_k9_bf16_stages_take_the_tensor_cores(stage):
+    """K9 (LN1 + attention backward) in bf16 at stages 1-3: kernel A per
+    window and kernel B (dx) on the tensor cores, B's blocks 8 warps of 16
+    rows x 96 columns; both weight products of the launch take the tensor
+    cores too."""
+    H, C, heads = TRAIN_STAGES[stage]
+    plan = wa.attn_bwd_plan(torch.bfloat16, 64, C, C // heads, True)
+    assert plan[0] == "tc"
+    assert (plan[1] // 16) * (C // 96) == 8
+    for M, Ncol in ((C, 3 * C), (C, C)):
+        assert wa.wgrad_plan(torch.bfloat16, 64 * H * H, M, Ncol)[0] == "tc"
+
+
+@pytest.mark.parametrize("dtype,N,C,d,ln", [
+    (torch.float32, 64, 96, 24, True),       # fp32: TF32 would break the fixtures
+    (torch.float32, 64, 384, 24, True),
+    (torch.bfloat16, 64, 768, 24, False),    # K6 at stage 4, its main-path shape
+    (torch.bfloat16, 64, 96, 24, False),     # K6 at a stage-1 shape
+    (torch.bfloat16, 64, 768, 24, True),     # C = 768: no stage K9 runs at
+    (torch.bfloat16, 64, 128, 32, True),     # d = 32
+    (torch.bfloat16, 64, 96, 16, True),      # d = 16
+    (torch.bfloat16, 16, 32, 8, True),       # 4x4 windows (the fixtures' tiny HTSAT)
+    (torch.bfloat16, 32, 96, 24, True),      # N = 32
+    (torch.bfloat16, 64, 288, 24, True),     # C = 3 x 96
+], ids=["fp32-C96", "fp32-C384", "k6-C768", "k6-C96", "C768", "d32", "d16", "4x4", "N32",
+        "C288"])
+def test_other_k9_and_k6_shapes_take_the_fma_kernels(dtype, N, C, d, ln):
+    assert wa.attn_bwd_plan(dtype, N, C, d, ln) == ("fma",)
+
+
+@pytest.mark.parametrize("dtype,N,C,d,error,match", [
+    (torch.float16, 64, 96, 24, TypeError, "dtype"),
+    (torch.bfloat16, 64, 192, 96, ValueError, "head dim"),
+    (torch.float32, 64, 60, 12, ValueError, "multiple of 8"),
+    (torch.bfloat16, 36, 96, 24, ValueError, "tokens per window"),
+    (torch.bfloat16, 256, 96, 24, ValueError, "tokens per window"),
+], ids=["fp16", "d96", "d12", "6x6", "16x16"])
+def test_attn_bwd_plan_refuses_what_neither_kernel_takes(dtype, N, C, d, error, match):
+    for ln in (True, False):
+        with pytest.raises(error, match=match):
+            wa.attn_bwd_plan(dtype, N, C, d, ln)

@@ -983,6 +983,597 @@ __global__ void __launch_bounds__(kWgThreads) wgrad_kernel(const bf16* A, int ld
   }
 }
 
+
+// -- K9 on the tensor cores: bf16, 8x8 windows, head dim 24, C = 96, 192, 384 --
+
+constexpr int kN = 64;               // tokens per window
+constexpr int kD = 24;               // head dim
+constexpr int kHeads = kGroup / kD;  // heads a column group
+constexpr int kQkv = 3 * kD;         // q, k, v columns of one head
+constexpr int kKvLd = 40;            // row length of the 24-wide tiles: k, v, qs, staging
+constexpr int kPLd = 72;             // row length of the 64-wide tiles: rnd(p), rnd(ds)
+constexpr int kAttnGroups = 2;       // most column groups a per-window block holds
+// bytes of one (window, column group)'s head tiles: k, v, qs [64][kKvLd] and
+// rnd(p), rnd(ds) [64][kPLd]
+constexpr int kHeadTiles = (3 * kN * kKvLd + 2 * kN * kPLd) * 2;
+
+struct AttnBwdTc {
+  const bf16 *x, *g, *ln1_s, *ln1_b, *qkv_w, *qkv_b, *proj_wt, *qkv_wt;
+  const float *m1, *bias;
+  bf16 *dx, *xn_s, *go_s, *o_s, *dqkv_s;
+  float *dbias_part, *ln_part;
+  int64_t n_tok;
+  int B, H, W, C, heads, shift;
+  float eps, scale;
+};
+
+// The per-window kernel's block: gb = min(C / 96, 2) column groups of warps
+// over M = 128 / gb rows (two windows at C = 96, else one; at C = 384 the
+// window's four groups are split over two blocks).
+__host__ __device__ inline int attn_groups(int C) {
+  return C / kGroup < kAttnGroups ? C / kGroup : kAttnGroups;
+}
+__host__ __device__ inline int attn_rows(int C) { return (kThreads / 32) / attn_groups(C) * 16; }
+
+// Byte offsets of the per-window kernel's shared memory: the bf16 row tiles
+// [M][C + 8] of LN1(x) (at 0) and of go, over which do = go Wproj^T lies for
+// the block's columns after the first product; the head tiles of each
+// (window, group), over which the first product stages its slabs; the qkv
+// slab buffers [3][32][odd_ld(72 gb)]; a [16][kKvLd] staging tile a warp.
+struct AttnSmem {
+  int go, heads, slab, stage, total;
+};
+__host__ __device__ inline AttnSmem attn_smem(int C) {
+  const int M = attn_rows(C), gb = attn_groups(C), tile = M * (C + 8) * 2;
+  AttnSmem s;
+  s.go = tile;
+  s.heads = 2 * tile;
+  s.slab = s.heads + (M / kN) * gb * kHeadTiles;
+  s.stage = s.slab + kSlabStages * kSlabRows * odd_ld(kQkv * gb) * 2;
+  s.total = s.stage + (kThreads / 32) * 16 * kKvLd * 2;
+  return s;
+}
+
+// 16 rows x 24 columns of C fragments, rounded, out to rows `ld` elements
+// apart at dst (16-byte aligned): through the warp's staging tile, 16 bytes
+// a lane.
+__device__ __forceinline__ void put_16x24(const float (&v)[kD / 8][4], bf16* stage, bf16* dst,
+                                          int64_t ld, bool valid) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kD / 8; ++nt) {
+    *reinterpret_cast<uint32_t*>(stage + g * kKvLd + nt * 8 + 2 * t) = pack2(v[nt][0], v[nt][1]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kKvLd + nt * 8 + 2 * t) =
+        pack2(v[nt][2], v[nt][3]);
+  }
+  __syncwarp();
+  if (valid) {
+    for (int i = lane; i < 16 * (kD / 8); i += 32) {
+      const int r = i / (kD / 8), c = (i - r * (kD / 8)) * 8;
+      *reinterpret_cast<uint4*>(dst + r * ld + c) =
+          *reinterpret_cast<const uint4*>(stage + r * kKvLd + c);
+    }
+  }
+  __syncwarp();
+}
+
+// Kernel A, per window (two at C = 96) and gb column groups: LN1(x) and go =
+// dy m1 for the block's rows (the block's columns of both to scratch), do =
+// go Wproj^T, then per head of the warp's group, for the warp's 16 query rows:
+// qkv recomputed, scores and softmax on the fragments, o = rnd(p) v, dp = do
+// v^T, ds = p (dp - rowsum(dp p)) (fp32 to dbias_part), dq = rnd(ds) k; after
+// one barrier, for the warp's 16 key rows, dk = rnd(ds)^T qs and dv = rnd(p)^T
+// do from the head tiles of all 64 rows. Scratch rows are window-major.
+__global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = p.C, C3 = 3 * C, lda = C + 8, n8 = C / 8;
+  const int gb = attn_groups(C), M = attn_rows(C), cg0 = blockIdx.y * gb;
+  const AttnSmem lay = attn_smem(C);
+  bf16* xn = reinterpret_cast<bf16*>(smem);
+  bf16* gt = reinterpret_cast<bf16*>(smem + lay.go);
+  unsigned char* heads = smem + lay.heads;
+  bf16* slab = reinterpret_cast<bf16*>(smem + lay.slab);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  bf16* stage = reinterpret_cast<bf16*>(smem + lay.stage) + warp * 16 * kKvLd;
+  const int mt = warp % (M / 16), wn = warp / (M / 16);
+  const int nWin = (p.H / 8) * (p.W / 8), total = p.B * nWin, win0 = blockIdx.x * (M / kN);
+  auto tok = [&](int gw, int r) {
+    return tok_offset(gw / nWin, gw % nWin, r, p.H, p.W, C, 8, p.shift);
+  };
+
+  // 1. The rows of x and dy, 16 bytes a thread with every copy in flight
+  // (rows of windows past the last: zeros).
+  for (int i = threadIdx.x; i < M * n8; i += kThreads) {
+    const int r = i / n8, c = (i - r * n8) * 8;
+    const int gw = win0 + r / kN;
+    const bool valid = gw < total;
+    const int64_t off = valid ? tok(gw, r % kN) + c : 0;
+    cp_async16_zfill(xn + r * lda + c, p.x + off, valid);
+    cp_async16_zfill(gt + r * lda + c, p.g + off, valid);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. LN1(x) and go = rnd(dy rnd(m1)) in place, a row's channels in a
+  // lane's registers (16 lanes a row at C = 96, else a warp); the block's
+  // columns of both to scratch.
+  {
+    const int L = n8 <= 16 ? 16 : 32, sl = lane & (L - 1);
+    const int row_groups = (kThreads / 32) * (32 / L), rg = warp * (32 / L) + lane / L;
+    const int c8_lo = cg0 * (kGroup / 8), c8_hi = (cg0 + gb) * (kGroup / 8);
+    for (int r = rg; r < M; r += row_groups) {
+      const int gw = win0 + r / kN;
+      const bool valid = gw < total;
+      const int64_t srow = static_cast<int64_t>(gw) * kN + r % kN;
+      float v[kLnChunks][8];
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kLnChunks; ++j) {
+        const int c8 = sl + j * L;
+        if (c8 < n8) {
+          unpack8(*reinterpret_cast<const uint4*>(xn + r * lda + c8 * 8), v[j]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) sum += v[j][i];
+        }
+      }
+      for (int o = L / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float mu = sum / C;
+      float sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < kLnChunks; ++j) {
+        if (sl + j * L < n8) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) sq += (v[j][i] - mu) * (v[j][i] - mu);
+        }
+      }
+      for (int o = L / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      const float iv = 1.f / sqrtf(sq / C + p.eps);
+      const float m1 = valid ? rnd<bf16>(p.m1[gw / nWin]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kLnChunks; ++j) {
+        const int c8 = sl + j * L;
+        if (c8 < n8) {
+          float sc[8], bb[8], gv[8];
+          unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
+          unpack8(*reinterpret_cast<const uint4*>(p.ln1_b + c8 * 8), bb);
+          unpack8(*reinterpret_cast<const uint4*>(gt + r * lda + c8 * 8), gv);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            v[j][i] = (v[j][i] - mu) * iv * sc[i] + bb[i];
+            gv[i] *= m1;
+          }
+          const uint4 xv = pack8(v[j]), zv = pack8(gv);
+          *reinterpret_cast<uint4*>(xn + r * lda + c8 * 8) = xv;
+          *reinterpret_cast<uint4*>(gt + r * lda + c8 * 8) = zv;
+          if (valid && c8 >= c8_lo && c8 < c8_hi) {
+            *reinterpret_cast<uint4*>(p.xn_s + srow * C + c8 * 8) = xv;
+            *reinterpret_cast<uint4*>(p.go_s + srow * C + c8 * 8) = zv;
+          }
+        }
+      }
+    }
+  }
+
+  // 3. do = go Wproj^T for the warp's rows and group (Wproj^T staged over the
+  // head tiles), rounded into go's tile once every warp is done reading it.
+  const int row = mt * 16 + (lane & 15);
+  {
+    float acc[kGroup / 8][4] = {};
+    staged_gemm<kGroup / 8>(acc, smem_addr(gt + row * lda + (lane >> 4) * 8), C,
+                            reinterpret_cast<bf16*>(heads), odd_ld(kGroup * gb),
+                            (kGroup / 8) * gb, wn * kGroup, C, [&](int k, int c8) {
+                              return p.proj_wt + static_cast<int64_t>(k) * C + cg0 * kGroup +
+                                     c8 * 8;
+                            });
+#pragma unroll
+    for (int nt = 0; nt < kGroup / 8; ++nt) {
+      bf16* dst = gt + (mt * 16 + g) * lda + (cg0 + wn) * kGroup + nt * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(dst) = pack2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<uint32_t*>(dst + 8 * lda) = pack2(acc[nt][2], acc[nt][3]);
+    }
+  }
+
+  // 4. One head of the warp's group at a time.
+  const int wl = mt / 4, rw = (mt % 4) * 16;  // local window; first row in it
+  const int gw = win0 + wl;
+  const bool valid = gw < total;
+  const int win = gw % nWin;
+  bf16* ks = reinterpret_cast<bf16*>(heads + (wl * gb + wn) * kHeadTiles);
+  bf16* vs = ks + kN * kKvLd;
+  bf16* qs = vs + kN * kKvLd;
+  bf16* pt = qs + kN * kKvLd;
+  bf16* dst_ = pt + kN * kPLd;
+  const int64_t srow = static_cast<int64_t>(gw) * kN + rw;  // scratch row of the warp's row 0
+  const uint32_t xn_addr = smem_addr(xn + row * lda + (lane >> 4) * 8);
+  const uint32_t k_addr =
+      smem_addr(ks + (lane & 7) * kKvLd + ((lane >> 3) < 2 ? (lane >> 3) : 2) * 8);
+  const uint32_t v_addr =
+      smem_addr(vs + (lane & 7) * kKvLd + ((lane >> 3) < 2 ? (lane >> 3) : 2) * 8);
+  for (int it = 0; it < kHeads; ++it) {
+    const int head = (cg0 + wn) * kHeads + it;
+    // q, k, v of this head for the warp's 16 rows
+    float acc[kQkv / 8][4] = {};
+    staged_gemm<kQkv / 8>(acc, xn_addr, C, slab, odd_ld(kQkv * gb), (kQkv / 8) * gb, wn * kQkv,
+                          C3, [&](int k, int c8) {
+                            const int grp = c8 / (kQkv / 8), j = c8 % (kQkv / 8);
+                            const int hd = (cg0 + grp) * kHeads + it;
+                            return p.qkv_w + static_cast<int64_t>(k) * C3 + (j / 3) * C +
+                                   hd * kD + (j % 3) * 8;
+                          });
+    uint32_t qa[4], qb[2];
+#pragma unroll
+    for (int nt = 0; nt < kQkv / 8; ++nt) {
+      const int part = nt / 3, j = (nt % 3) * 8 + 2 * t;
+      const float2 bv =
+          unpack2(*reinterpret_cast<const uint32_t*>(p.qkv_b + part * C + head * kD + j));
+      const float v0 = rnd<bf16>(acc[nt][0] + bv.x), v1 = rnd<bf16>(acc[nt][1] + bv.y);
+      const float v2 = rnd<bf16>(acc[nt][2] + bv.x), v3 = rnd<bf16>(acc[nt][3] + bv.y);
+      uint32_t lo, hi;
+      bf16* dst;
+      if (part == 0) {  // qs = rnd(q * scale): the A fragments of q k^T, and a tile for dk
+        lo = pack2(v0 * p.scale, v1 * p.scale);
+        hi = pack2(v2 * p.scale, v3 * p.scale);
+        if (nt == 0) { qa[0] = lo; qa[1] = hi; }
+        if (nt == 1) { qa[2] = lo; qa[3] = hi; }
+        if (nt == 2) { qb[0] = lo; qb[1] = hi; }
+        dst = qs;
+      } else {
+        lo = pack2(v0, v1);
+        hi = pack2(v2, v3);
+        dst = part == 1 ? ks : vs;
+      }
+      *reinterpret_cast<uint32_t*>(dst + (rw + g) * kKvLd + j) = lo;
+      *reinterpret_cast<uint32_t*>(dst + (rw + g + 8) * kKvLd + j) = hi;
+    }
+    __syncthreads();  // k, v, qs of the window's 64 rows are in place
+
+    // scores = qs k^T + bias: 8 column tiles of 8 keys, depth 24 = 16 + 8
+    float s[kN / 8][4] = {};
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      uint32_t kb[4];
+      ldsm_x4(kb, k_addr + nt * 8 * kKvLd * 2);
+      mma_k16(s[nt], qa, kb[0], kb[1]);
+      mma_k8(s[nt], qb[0], qb[1], kb[2]);
+    }
+    if (valid) {
+      const float* bp = p.bias + ((static_cast<int64_t>(win) * p.heads + head) * kN + rw + g) * kN +
+                        2 * t;
+#pragma unroll
+      for (int nt = 0; nt < kN / 8; ++nt) {
+        const float2 u = *reinterpret_cast<const float2*>(bp + nt * 8);
+        const float2 l = *reinterpret_cast<const float2*>(bp + 8 * kN + nt * 8);
+        s[nt][0] += u.x; s[nt][1] += u.y; s[nt][2] += l.x; s[nt][3] += l.y;
+      }
+    }
+    // p = softmax, rows g (values 0, 1) and g + 8 (values 2, 3) over the quad,
+    // kept in fp32; rnd(p) packed (the A fragments of p v) and into its tile
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      s[nt][0] = expf(s[nt][0] - mx0); s[nt][1] = expf(s[nt][1] - mx0);
+      s[nt][2] = expf(s[nt][2] - mx1); s[nt][3] = expf(s[nt][3] - mx1);
+      l0 += s[nt][0] + s[nt][1];
+      l1 += s[nt][2] + s[nt][3];
+    }
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    uint32_t pk[kN / 8][2];
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      s[nt][0] /= l0; s[nt][1] /= l0; s[nt][2] /= l1; s[nt][3] /= l1;
+      pk[nt][0] = pack2(s[nt][0], s[nt][1]);
+      pk[nt][1] = pack2(s[nt][2], s[nt][3]);
+      *reinterpret_cast<uint32_t*>(pt + (rw + g) * kPLd + nt * 8 + 2 * t) = pk[nt][0];
+      *reinterpret_cast<uint32_t*>(pt + (rw + g + 8) * kPLd + nt * 8 + 2 * t) = pk[nt][1];
+    }
+
+    // o = rnd(p) v: depth 64, width 24
+    {
+      float o[kD / 8][4] = {};
+      const bf16* vrow = vs + (lane & 15) * kKvLd;
+#pragma unroll
+      for (int j = 0; j < kN / 16; ++j) {
+        const uint32_t pa[4] = {pk[2 * j][0], pk[2 * j][1], pk[2 * j + 1][0], pk[2 * j + 1][1]};
+        uint32_t vb[4], vc[2];
+        ldsm_x4_t(vb, smem_addr(vrow + j * 16 * kKvLd + (lane >> 4) * 8));
+        ldsm_x2_t(vc, smem_addr(vrow + j * 16 * kKvLd + 16));
+        mma_k16(o[0], pa, vb[0], vb[1]);
+        mma_k16(o[1], pa, vb[2], vb[3]);
+        mma_k16(o[2], pa, vc[0], vc[1]);
+      }
+      put_16x24(o, stage, p.o_s + srow * C + head * kD, C, valid);
+    }
+
+    // dp = do v^T: do's A fragments from its tile, v read as k is in q k^T
+    float dp[kN / 8][4] = {};
+    {
+      uint32_t da[4], db[2];
+      ldsm_x4(da, smem_addr(gt + row * lda + head * kD + (lane >> 4) * 8));
+      ldsm_x2(db, smem_addr(gt + row * lda + head * kD + 16));
+#pragma unroll
+      for (int nt = 0; nt < kN / 8; ++nt) {
+        uint32_t vb[4];
+        ldsm_x4(vb, v_addr + nt * 8 * kKvLd * 2);
+        mma_k16(dp[nt], da, vb[0], vb[1]);
+        mma_k8(dp[nt], db[0], db[1], vb[2]);
+      }
+    }
+    // ds = p (dp - rowsum(dp p)) in fp32 (over dp), to dbias_part before rounding
+    float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      r0 += dp[nt][0] * s[nt][0] + dp[nt][1] * s[nt][1];
+      r1 += dp[nt][2] * s[nt][2] + dp[nt][3] * s[nt][3];
+    }
+    r0 += __shfl_xor_sync(0xffffffffu, r0, 1);
+    r0 += __shfl_xor_sync(0xffffffffu, r0, 2);
+    r1 += __shfl_xor_sync(0xffffffffu, r1, 1);
+    r1 += __shfl_xor_sync(0xffffffffu, r1, 2);
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      dp[nt][0] = s[nt][0] * (dp[nt][0] - r0);
+      dp[nt][1] = s[nt][1] * (dp[nt][1] - r0);
+      dp[nt][2] = s[nt][2] * (dp[nt][2] - r1);
+      dp[nt][3] = s[nt][3] * (dp[nt][3] - r1);
+    }
+    if (valid) {
+      float* db = p.dbias_part + ((static_cast<int64_t>(gw) * p.heads + head) * kN + rw + g) * kN +
+                  2 * t;
+#pragma unroll
+      for (int nt = 0; nt < kN / 8; ++nt) {
+        *reinterpret_cast<float2*>(db + nt * 8) = make_float2(dp[nt][0], dp[nt][1]);
+        *reinterpret_cast<float2*>(db + 8 * kN + nt * 8) = make_float2(dp[nt][2], dp[nt][3]);
+      }
+    }
+    // rnd(ds): packed (the A fragments of ds k) and into its tile
+#pragma unroll
+    for (int nt = 0; nt < kN / 8; ++nt) {
+      pk[nt][0] = pack2(dp[nt][0], dp[nt][1]);
+      pk[nt][1] = pack2(dp[nt][2], dp[nt][3]);
+      *reinterpret_cast<uint32_t*>(dst_ + (rw + g) * kPLd + nt * 8 + 2 * t) = pk[nt][0];
+      *reinterpret_cast<uint32_t*>(dst_ + (rw + g + 8) * kPLd + nt * 8 + 2 * t) = pk[nt][1];
+    }
+    // dq = rnd(rnd(rnd(ds) k) scale): k read as v is in p v
+    {
+      float dq[kD / 8][4] = {};
+      const bf16* krow = ks + (lane & 15) * kKvLd;
+#pragma unroll
+      for (int j = 0; j < kN / 16; ++j) {
+        const uint32_t pa[4] = {pk[2 * j][0], pk[2 * j][1], pk[2 * j + 1][0], pk[2 * j + 1][1]};
+        uint32_t kb[4], kc[2];
+        ldsm_x4_t(kb, smem_addr(krow + j * 16 * kKvLd + (lane >> 4) * 8));
+        ldsm_x2_t(kc, smem_addr(krow + j * 16 * kKvLd + 16));
+        mma_k16(dq[0], pa, kb[0], kb[1]);
+        mma_k16(dq[1], pa, kb[2], kb[3]);
+        mma_k16(dq[2], pa, kc[0], kc[1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kD / 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dq[nt][i] = rnd<bf16>(rnd<bf16>(dq[nt][i]) * p.scale);
+      put_16x24(dq, stage, p.dqkv_s + srow * C3 + head * kD, C3, valid);
+    }
+    __syncthreads();  // rnd(p) and rnd(ds) of the window's 64 rows are in place
+
+    // dk = rnd(ds)^T qs and dv = rnd(p)^T do for the warp's 16 key rows: the A
+    // fragments of the transposes by ldmatrix.trans of the [query][key] tiles
+    {
+      float dk[kD / 8][4] = {}, dv[kD / 8][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        const int ar = kk * 16 + (lane >> 4) * 8 + (lane & 7), ac = rw + ((lane >> 3) & 1) * 8;
+        uint32_t a[4], b4[4], b2[2];
+        ldsm_x4_t(a, smem_addr(dst_ + ar * kPLd + ac));
+        const bf16* qrow = qs + (kk * 16 + (lane & 15)) * kKvLd;
+        ldsm_x4_t(b4, smem_addr(qrow + (lane >> 4) * 8));
+        ldsm_x2_t(b2, smem_addr(qrow + 16));
+        mma_k16(dk[0], a, b4[0], b4[1]);
+        mma_k16(dk[1], a, b4[2], b4[3]);
+        mma_k16(dk[2], a, b2[0], b2[1]);
+        ldsm_x4_t(a, smem_addr(pt + ar * kPLd + ac));
+        const bf16* drow = gt + (wl * kN + kk * 16 + (lane & 15)) * lda + head * kD;
+        ldsm_x4_t(b4, smem_addr(drow + (lane >> 4) * 8));
+        ldsm_x2_t(b2, smem_addr(drow + 16));
+        mma_k16(dv[0], a, b4[0], b4[1]);
+        mma_k16(dv[1], a, b4[2], b4[3]);
+        mma_k16(dv[2], a, b2[0], b2[1]);
+      }
+      put_16x24(dk, stage, p.dqkv_s + srow * C3 + C + head * kD, C3, valid);
+      put_16x24(dv, stage, p.dqkv_s + srow * C3 + 2 * C + head * kD, C3, valid);
+    }
+    // the next head's product syncs before it overwrites the head tiles
+  }
+}
+
+// Kernel B's shared memory: the bf16 dqkv row tile [M][3C + 8] (at 0; the
+// fp32 dxn tile [M][C + 8] lies over it after the product), the x and dy row
+// tiles [M][C + 8], the slab buffers [3][32][odd_ld(C)], over which the
+// partial sums [row groups][3][C] lie at the end.
+struct DxSmem {
+  int x, dy, slab, total;
+};
+__host__ __device__ inline DxSmem dx_smem(int M, int C) {
+  DxSmem s;
+  s.x = M * (3 * C + 8) * 2;
+  s.dy = s.x + M * (C + 8) * 2;
+  s.slab = s.dy + M * (C + 8) * 2;
+  s.total = s.slab + kSlabStages * kSlabRows * odd_ld(C) * 2;
+  return s;
+}
+
+// Kernel B, per M = 128 / (C / 96) window-major scratch rows (a warp: 16 rows
+// x 96 columns): dxn = rnd(dqkv Wqkv^T) (Wqkv^T staged), then the LN1
+// backward with the row statistics recomputed from x, dx = rnd(dy + rnd(du))
+// at the tokens' places, and the block's partials [6C]: sum dxn xhat, sum
+// dxn (dLN1), sum go (the proj bias gradient, go = rnd(dy rnd(m1))), and the
+// column sums of dqkv (the qkv bias gradient).
+__global__ void __launch_bounds__(kThreads, 1) attn_dx_kernel(AttnBwdTc p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = p.C, C3 = 3 * C, groups = C / kGroup, M = kRows / groups;
+  const int lda = C + 8, ldq = C3 + 8, n8 = C / 8;
+  const DxSmem lay = dx_smem(M, C);
+  bf16* dq = reinterpret_cast<bf16*>(smem);
+  bf16* xt = reinterpret_cast<bf16*>(smem + lay.x);
+  bf16* yt = reinterpret_cast<bf16*>(smem + lay.dy);
+  bf16* slab = reinterpret_cast<bf16*>(smem + lay.slab);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int mt = warp % (M / 16), wn = warp / (M / 16);
+  const int nWin = (p.H / 8) * (p.W / 8);
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * M;
+  auto tok = [&](int64_t row) {
+    const int gw = static_cast<int>(row / kN);
+    return tok_offset(gw / nWin, gw % nWin, static_cast<int>(row % kN), p.H, p.W, C, 8, p.shift);
+  };
+
+  // 1. The dqkv rows, and the rows of x and dy at the tokens' places, all in flight.
+  for (int i = threadIdx.x; i < M * (C3 / 8); i += kThreads) {
+    const int r = i / (C3 / 8), c = (i - r * (C3 / 8)) * 8;
+    const bool valid = t0 + r < p.n_tok;
+    cp_async16_zfill(dq + r * ldq + c, p.dqkv_s + (valid ? (t0 + r) * C3 + c : 0), valid);
+  }
+  for (int i = threadIdx.x; i < M * n8; i += kThreads) {
+    const int r = i / n8, c = (i - r * n8) * 8;
+    const bool valid = t0 + r < p.n_tok;
+    const int64_t off = valid ? tok(t0 + r) + c : 0;
+    cp_async16_zfill(xt + r * lda + c, p.x + off, valid);
+    cp_async16_zfill(yt + r * lda + c, p.g + off, valid);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  float* part = p.ln_part + static_cast<int64_t>(blockIdx.x) * 6 * C;
+  for (int c = threadIdx.x; c < C3; c += kThreads) {
+    float sum = 0.f;
+    for (int r = 0; r < M; ++r) sum += __bfloat162float(dq[r * ldq + c]);
+    part[3 * C + c] = sum;
+  }
+
+  // 2. dxn = dqkv Wqkv^T, K = 3C; rounded, in fp32 over the dqkv tile.
+  float acc[kGroup / 8][4] = {};
+  staged_gemm<kGroup / 8, kCopies>(
+      acc, smem_addr(dq + (mt * 16 + (lane & 15)) * ldq + (lane >> 4) * 8), C3, slab, odd_ld(C),
+      n8, wn * kGroup, C,
+      [&](int k, int c8) { return p.qkv_wt + static_cast<int64_t>(k) * C + c8 * 8; });
+  float* dt = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int nt = 0; nt < kGroup / 8; ++nt) {
+    float* d = dt + (mt * 16 + g) * lda + wn * kGroup + nt * 8 + 2 * t;
+    *reinterpret_cast<float2*>(d) = make_float2(rnd<bf16>(acc[nt][0]), rnd<bf16>(acc[nt][1]));
+    *reinterpret_cast<float2*>(d + 8 * lda) =
+        make_float2(rnd<bf16>(acc[nt][2]), rnd<bf16>(acc[nt][3]));
+  }
+  __syncthreads();
+
+  // 3. The LN1 backward per row, a lane summing its channels over its rows.
+  const int L = n8 <= 16 ? 16 : 32, sl = lane & (L - 1);
+  const int row_groups = (kThreads / 32) * (32 / L), rg = warp * (32 / L) + lane / L;
+  float s1[kLnChunks][8] = {}, s2[kLnChunks][8] = {}, s3[kLnChunks][8] = {};
+  for (int r = rg; r < M; r += row_groups) {
+    const bool valid = t0 + r < p.n_tok;
+    const int64_t off = valid ? tok(t0 + r) : 0;
+    const float m1 = valid ? rnd<bf16>(p.m1[(t0 + r) / kN / nWin]) : 0.f;
+    float xh[kLnChunks][8], d[kLnChunks][8];
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      const int c8 = sl + j * L;
+      if (c8 < n8) {
+        unpack8(*reinterpret_cast<const uint4*>(xt + r * lda + c8 * 8), xh[j]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sum += xh[j][i];
+      }
+    }
+    for (int o = L / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mu = sum / C;
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      if (sl + j * L < n8) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sq += (xh[j][i] - mu) * (xh[j][i] - mu);
+      }
+    }
+    for (int o = L / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
+    const float iv = 1.f / sqrtf(sq / C + p.eps);
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      const int c8 = sl + j * L;
+      if (c8 < n8) {
+        float sc[8];
+        unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
+        const float4 da = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8);
+        const float4 db = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8 + 4);
+        d[j][0] = da.x; d[j][1] = da.y; d[j][2] = da.z; d[j][3] = da.w;
+        d[j][4] = db.x; d[j][5] = db.y; d[j][6] = db.z; d[j][7] = db.w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          xh[j][i] = (xh[j][i] - mu) * iv;
+          const float gs = d[j][i] * sc[i];
+          sa += gs;
+          sb += gs * xh[j][i];
+        }
+      }
+    }
+    for (int o = L / 2; o > 0; o >>= 1) {
+      sa += __shfl_xor_sync(0xffffffffu, sa, o);
+      sb += __shfl_xor_sync(0xffffffffu, sb, o);
+    }
+    const float ma = sa / C, mb = sb / C;
+#pragma unroll
+    for (int j = 0; j < kLnChunks; ++j) {
+      const int c8 = sl + j * L;
+      if (c8 < n8) {
+        float sc[8], out[8];
+        unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
+        unpack8(*reinterpret_cast<const uint4*>(yt + r * lda + c8 * 8), out);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float du = (d[j][i] * sc[i] - ma - xh[j][i] * mb) * iv;
+          s3[j][i] += rnd<bf16>(out[i] * m1);
+          out[i] += rnd<bf16>(du);
+          s1[j][i] += d[j][i] * xh[j][i];
+          s2[j][i] += d[j][i];
+        }
+        if (valid) *reinterpret_cast<uint4*>(p.dx + off + c8 * 8) = pack8(out);
+      }
+    }
+  }
+  float* psum = reinterpret_cast<float*>(slab);  // [row_groups][3][C]
+#pragma unroll
+  for (int j = 0; j < kLnChunks; ++j) {
+    const int c8 = sl + j * L;
+    if (c8 < n8) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        psum[(rg * 3) * C + c8 * 8 + i] = s1[j][i];
+        psum[(rg * 3 + 1) * C + c8 * 8 + i] = s2[j][i];
+        psum[(rg * 3 + 2) * C + c8 * 8 + i] = s3[j][i];
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < 3 * C; idx += kThreads) {
+    float sum = 0.f;
+    for (int q = 0; q < row_groups; ++q) sum += psum[q * 3 * C + idx];
+    part[idx] = sum;
+  }
+}
+
 }  // namespace tc
 
 template <typename K, typename P>
@@ -993,12 +1584,16 @@ int launch(K kernel, const P& p, int n_blocks, int smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// parts: 1 the per-window kernel, 2 the dx kernel, 3 both.
 template <typename T, bool kLn>
-int attn_bwd_launch(const AttnBwd& p, int B, cudaStream_t s) {
+int attn_bwd_launch(const AttnBwd& p, int B, int parts, cudaStream_t s) {
   const int N = p.window * p.window, d = p.C / p.heads;
   const int n_win = B * (p.H / p.window) * (p.W / p.window);
-  int rc = launch(attn_bwd_a<T, kLn>, p, n_win, attn_a_smem(sizeof(T), N, p.C, d), s);
-  if (rc) return rc;
+  if (parts & 1) {
+    const int rc = launch(attn_bwd_a<T, kLn>, p, n_win, attn_a_smem(sizeof(T), N, p.C, d), s);
+    if (rc) return rc;
+  }
+  if (!(parts & 2)) return 0;
   return launch(attn_bwd_b<T, kLn>, p, n_win * (N / p.rows), attn_b_smem(p.C, p.rows), s);
 }
 
@@ -1015,12 +1610,13 @@ extern "C" int swin_train_smem(int which, int itemsize, int N, int C, int d, int
 extern "C" int swin_train_smem_limit() { return smem_limit(); }
 
 // K6 (ln = 0: g is the output cotangent) or K9 (ln = 1: g is dy, with m1
-// and LN1): the per-window kernel, then the dx kernel. Scratch rows
-// B * nWin * N: xn_s, go_s, o_s, do_s [.., C], dqkv_s [.., 3C] in the
-// activation dtype; dbias_part [B, nWin, heads, N, N] and ln_part
-// [B * nWin * N / rows, 2, C] fp32. Returns cudaGetLastError() as an int.
-extern "C" int swin_attn_bwd(int dtype, int ln, const void* x, const void* g, const void* m1,
-                             const void* ln1_s, const void* ln1_b, const void* qkv_w,
+// and LN1): the per-window kernel, then the dx kernel (parts: 1 the first
+// alone, 2 the second alone, 3 both). Scratch rows B * nWin * N: xn_s, go_s,
+// o_s, do_s [.., C], dqkv_s [.., 3C] in the activation dtype; dbias_part [B,
+// nWin, heads, N, N] and ln_part [B * nWin * N / rows, 2, C] fp32. Returns
+// cudaGetLastError() as an int.
+extern "C" int swin_attn_bwd(int dtype, int ln, int parts, const void* x, const void* g,
+                             const void* m1, const void* ln1_s, const void* ln1_b, const void* qkv_w,
                              const void* qkv_b, const void* proj_w, const void* bias, void* dx,
                              void* xn_s, void* go_s, void* o_s, void* do_s, void* dqkv_s,
                              void* dbias_part, void* ln_part, int B, int H, int W, int C,
@@ -1028,7 +1624,7 @@ extern "C" int swin_attn_bwd(int dtype, int ln, const void* x, const void* g, co
                              void* stream) {
   const int N = window * window;
   if (heads <= 0 || C % heads || (C / heads) % 8 || N % 8 || H % window || W % window ||
-      rows <= 0 || rows % 8 || N % rows || (ln && m1 == nullptr)) {
+      rows <= 0 || rows % 8 || N % rows || (ln && m1 == nullptr) || parts < 1 || parts > 3) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   AttnBwd p{x, g, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, static_cast<const float*>(m1),
@@ -1036,11 +1632,70 @@ extern "C" int swin_attn_bwd(int dtype, int ln, const void* x, const void* g, co
             static_cast<float*>(dbias_part), static_cast<float*>(ln_part),
             H, W, C, heads, window, shift, rows, eps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return ln ? attn_bwd_launch<float, true>(p, B, s)
-                            : attn_bwd_launch<float, false>(p, B, s);
-  if (dtype == 1) return ln ? attn_bwd_launch<__nv_bfloat16, true>(p, B, s)
-                            : attn_bwd_launch<__nv_bfloat16, false>(p, B, s);
+  if (dtype == 0) return ln ? attn_bwd_launch<float, true>(p, B, parts, s)
+                            : attn_bwd_launch<float, false>(p, B, parts, s);
+  if (dtype == 1) return ln ? attn_bwd_launch<__nv_bfloat16, true>(p, B, parts, s)
+                            : attn_bwd_launch<__nv_bfloat16, false>(p, B, parts, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K9 on the tensor cores (kernel A, then kernel B; parts: 1 the first alone,
+// 2 the second alone, 3 both): bf16, 8x8 windows, C = 96 * groups with
+// groups 1, 2 or 4 and heads = C / 24. proj_wt [C, C] and qkv_wt [3C, C] are
+// the transposed weights; x, g (dy) and every row pointer 16-byte aligned.
+// Scratch rows B * nWin * 64, window-major: xn_s, go_s, o_s [.., C], dqkv_s
+// [.., 3C] bf16; dbias_part [B, nWin, heads, 64, 64] and ln_part
+// [ceil(n_tok / (128 / groups)), 6, C] fp32 (dLN1's two rows, then the proj
+// and qkv bias gradients' partials).
+extern "C" int swin_attn_bwd_tc(int parts, const void* x, const void* g, const void* m1,
+                                const void* ln1_s, const void* ln1_b, const void* qkv_w,
+                                const void* qkv_b, const void* proj_wt, const void* qkv_wt,
+                                const void* bias, void* dx, void* xn_s, void* go_s, void* o_s,
+                                void* dqkv_s, void* dbias_part, void* ln_part, int B, int H, int W,
+                                int C, int heads, int shift, float eps, float scale,
+                                void* stream) {
+  using tc::bf16;
+  const int groups = C / tc::kGroup;
+  if (parts < 1 || parts > 3 || C % tc::kGroup || (groups != 1 && groups != 2 && groups != 4) ||
+      heads * tc::kD != C || B <= 0 || H <= 0 || W <= 0 || H % 8 || W % 8 || shift < 0 ||
+      m1 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto in = [](const void* q) { return static_cast<const bf16*>(q); };
+  auto out = [](void* q) { return static_cast<bf16*>(q); };
+  tc::AttnBwdTc p{in(x), in(g), in(ln1_s), in(ln1_b), in(qkv_w), in(qkv_b), in(proj_wt),
+                  in(qkv_wt), static_cast<const float*>(m1), static_cast<const float*>(bias),
+                  out(dx), out(xn_s), out(go_s), out(o_s), out(dqkv_s),
+                  static_cast<float*>(dbias_part), static_cast<float*>(ln_part),
+                  static_cast<int64_t>(B) * H * W, B, H, W, C, heads, shift, eps, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (parts & 1) {
+    const int smem = tc::attn_smem(C).total, gb = tc::attn_groups(C);
+    const int wpb = tc::attn_rows(C) / tc::kN;
+    // the first product stages Wproj^T over the head tiles
+    if (smem > smem_limit() ||
+        kSlabStages * kSlabRows * odd_ld(tc::kGroup * gb) * 2 > wpb * gb * tc::kHeadTiles)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(tc::attn_bwd_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int total = B * (H / 8) * (W / 8);
+    dim3 grid((total + wpb - 1) / wpb, groups / gb);
+    tc::attn_bwd_kernel<<<grid, tc::kThreads, smem, s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (parts & 2) {
+    const int rows = tc::kRows / groups, smem = tc::dx_smem(rows, C).total;
+    if (smem > smem_limit()) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(tc::attn_dx_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const unsigned n_blocks = static_cast<unsigned>((p.n_tok + rows - 1) / rows);
+    tc::attn_dx_kernel<<<n_blocks, tc::kThreads, smem, s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // K8's per-token kernel over n_tok = B*H*W tokens in groups of `rows`

@@ -11,7 +11,9 @@ filterbank and ``10 * log10(max(mel, amin)) - 10 * log10(max(amin, ref))``.
 - ``log_mel`` is the wrapper of K2 (``csrc/logmel.cu``), which replaces the
   Pallas TPU kernel ``zs_aac_tpu/ops/logmel.py::_logmel_kernel``. For CPU
   tensors it calls ``log_mel_plain``; for CUDA tensors it launches the
-  kernel or raises. ``log_mel.launches`` counts launches.
+  kernel or raises. ``log_mel.launches`` counts launches. On CUDA its
+  gradient is the VJP of ``log_mel_plain`` (``_LogMel``), as the JAX
+  ``log_mel_pallas``'s is that of ``log_mel_xla``.
 
 The kernel computes each frame's spectrum with a radix-2 FFT in shared
 memory (the TPU kernel's DFT-as-two-matmuls served the MXU; on the card an
@@ -173,13 +175,9 @@ def _kernel():
     return fn
 
 
-def log_mel(wave: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
-    """K2: ``log_mel_plain`` for CPU tensors, the CUDA kernel for CUDA
-    tensors (same arguments and result)."""
-    if wave.device.type == "cpu":
-        return log_mel_plain(wave, cfg)
-    if wave.device.type != "cuda":
-        raise RuntimeError(f"log_mel: no kernel for device {wave.device}")
+def _launch(wave: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
+    """K2 on a CUDA ``wave``: checks, launches and counts; raises on what the
+    kernel does not take or a failed launch."""
     if wave.dim() != 2:
         raise ValueError(f"log_mel: wave must be [B, T], got {tuple(wave.shape)}")
     n_fft = cfg.n_fft
@@ -201,6 +199,35 @@ def log_mel(wave: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
         raise RuntimeError(f"log_mel: kernel launch failed (cudaError {rc})")
     log_mel.launches += 1
     return out
+
+
+class _LogMel(torch.autograd.Function):
+    """K2 forward; backward the VJP of ``log_mel_plain`` on the saved wave (the
+    JAX ``log_mel_pallas`` custom_vjp's backward is that of ``log_mel_xla``)."""
+
+    @staticmethod
+    def forward(ctx, wave, cfg):
+        ctx.save_for_backward(wave)
+        ctx.cfg = cfg
+        return _launch(wave, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        (wave,) = ctx.saved_tensors
+        leaf = wave.detach().requires_grad_()
+        with torch.enable_grad():
+            out = log_mel_plain(leaf, ctx.cfg)
+        return torch.autograd.grad(out, leaf, g)[0], None
+
+
+def log_mel(wave: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
+    """K2: ``log_mel_plain`` for CPU tensors, the CUDA kernel for CUDA
+    tensors (same arguments and result, differentiable in ``wave``)."""
+    if wave.device.type == "cpu":
+        return log_mel_plain(wave, cfg)
+    if wave.device.type != "cuda":
+        raise RuntimeError(f"log_mel: no kernel for device {wave.device}")
+    return _LogMel.apply(wave, cfg)
 
 
 log_mel.launches = 0

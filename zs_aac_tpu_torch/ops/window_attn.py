@@ -35,13 +35,15 @@ what a kernel refuses, never falling back):
 K3, K5 and K7 are ``csrc/window_attn.cu``, in two instantiations chosen by
 shape (``window_kernel_plan``): tensor-core kernels for bf16 at HTSAT's
 shapes, the FMA kernel for fp32 and every other shape. K6, K8 and K9 are
-``csrc/swin_train.cu``: K8's per-token kernel (``mlp_bwd_plan``) and the
-split-token weight-gradient product that K6, K8 and K9 share (``wgrad_plan``)
-have a tensor-core instantiation for bf16 at HTSAT's widths beside the FMA
-one. Each kernel's wrapper counts its launches in ``.launches``, and
-K3/K5/K7/K8's those that took the tensor-core kernels in ``.tc_launches``
-(K8: the per-token kernel and both weight products); ``_wgrad.tc_launches``
-counts the weight-gradient products on the tensor cores.
+``csrc/swin_train.cu``: K8's per-token kernel (``mlp_bwd_plan``), K9's two
+per-token kernels (``attn_bwd_plan``) and the split-token weight-gradient
+product that K6, K8 and K9 share (``wgrad_plan``) have a tensor-core
+instantiation for bf16 at HTSAT's widths beside the FMA one. Each kernel's
+wrapper counts its launches in ``.launches``, and K3/K5/K7/K8/K9's those that
+took the tensor-core kernels in ``.tc_launches`` (K8: the per-token kernel and
+both weight products; K9: both per-token kernels A and B);
+``_wgrad.tc_launches`` counts the weight-gradient products on the tensor
+cores.
 
 Numerics (the JAX kernels' rounding points): in the activation dtype ``dt``
 these round -- qkv, q times the (``dt``-rounded) scale, the probabilities,
@@ -78,6 +80,7 @@ __all__ = [
     "window_kernel_plan",
     "mlp_bwd_plan",
     "wgrad_plan",
+    "attn_bwd_plan",
 ]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,7 +90,7 @@ _HIDDEN_CHUNK = 64     # hidden columns per MLP chunk (kChunk in the kernel)
 _WGRAD_BLOCKS = 528    # split-token weight-gradient blocks to aim for (4 per SM)
 _TC_HEAD_DIM = 24      # the tensor-core kernels' head dim (every HTSAT stage)
 _TC_GROUP = 96         # channels per warp column group there: 4 heads
-_TC_MLP_BWD_ROWS = 128 # K8's tensor-core kernel: rows a block times column groups
+_TC_BWD_ROWS = 128     # K8's and K9's tensor-core row kernels: rows a block times column groups
 _FMA_WGRAD_TILE = 64   # output tile of the FMA weight-gradient product
 
 
@@ -359,7 +362,8 @@ def _train_lib():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.swin_train_smem.argtypes = [i] * 6
         lib.swin_train_smem_limit.argtypes = []
-        lib.swin_attn_bwd.argtypes = [i, i] + [vp] * 17 + [i] * 8 + [f, f, vp]
+        lib.swin_attn_bwd.argtypes = [i, i, i] + [vp] * 17 + [i] * 8 + [f, f, vp]
+        lib.swin_attn_bwd_tc.argtypes = [i] + [vp] * 17 + [i] * 6 + [f, f, vp]
         lib.swin_mlp_bwd.argtypes = ([i] + [vp] * 15 + [ctypes.c_longlong] + [i] * 4
                                      + [f, vp])
         lib.swin_mlp_bwd_tc.argtypes = ([vp] * 16 + [ctypes.c_longlong] + [i] * 4 + [f, vp])
@@ -367,8 +371,8 @@ def _train_lib():
         lib.swin_wgrad_tc.argtypes = [vp, i, vp, i, ctypes.c_longlong, i, i, i, vp, vp, vp]
         lib.swin_reduce.argtypes = [vp, i, ctypes.c_longlong, vp, vp]
         for fn in (lib.swin_train_smem, lib.swin_train_smem_limit, lib.swin_attn_bwd,
-                   lib.swin_mlp_bwd, lib.swin_mlp_bwd_tc, lib.swin_wgrad, lib.swin_wgrad_tc,
-                   lib.swin_reduce):
+                   lib.swin_attn_bwd_tc, lib.swin_mlp_bwd, lib.swin_mlp_bwd_tc, lib.swin_wgrad,
+                   lib.swin_wgrad_tc, lib.swin_reduce):
             fn.restype = ctypes.c_int
     return lib
 
@@ -548,7 +552,7 @@ def mlp_bwd_plan(dtype, n_tok: int, C: int, hidden: int):
     groups = C // _TC_GROUP
     if (dtype == torch.bfloat16 and C % _TC_GROUP == 0 and groups in (1, 2, 4)
             and hidden == 4 * C):
-        return ("tc", _TC_MLP_BWD_ROWS // groups)
+        return ("tc", _TC_BWD_ROWS // groups)
     return ("fma",)
 
 
@@ -575,6 +579,35 @@ def wgrad_plan(dtype, n_tok: int, M: int, Ncol: int, has_a: bool = True):
     tiles = math.ceil(M / tile) * math.ceil(Ncol / tile)
     n_chunks = max(1, min(math.ceil(_WGRAD_BLOCKS / tiles), n_tok // 256))
     return ("tc" if tc else "fma", n_chunks)
+
+
+def attn_bwd_plan(dtype, N: int, C: int, d: int, ln: bool):
+    """Which per-token kernels of ``csrc/swin_train.cu`` a launch of K9 (``ln``
+    true: LN1 and the m1-scaled residual) or K6 (``ln`` false) takes, from the
+    activation dtype, the tokens per window ``N``, the channels ``C`` and the
+    head dim ``d``.
+
+    - ``("tc", rows)``: the tensor-core kernels, the per-window kernel A and
+      the dx kernel B. bf16, N = 64 (8x8 windows), d = 24, C = 96, 192 or 384
+      and ``ln`` (K9 at HTSAT's stages 1-3, every shape the train step gives
+      it); ``rows`` tokens a block of kernel B (128 over the C / 96 column
+      groups: 8 warps).
+    - ``("fma",)``: the FMA kernels ``attn_bwd_a`` and ``attn_bwd_b``. fp32
+      always (TF32 would break the fp32 fixtures), K6 always, and bf16 at any
+      other shape they take: N a multiple of 8 up to 64, d a multiple of 8 up
+      to 64 (and enough shared memory, which only the card can say: the
+      wrapper raises there).
+
+    Raises ``TypeError`` or ``ValueError`` for what neither takes. A rule on
+    shapes alone: a CUDA tensor launches the planned kernels or raises."""
+    _check_window("attention backward", dtype, N, d)
+    if d <= 0 or d % 8:
+        raise ValueError(f"attention backward: head dim {d} is not a multiple of 8")
+    groups = C // _TC_GROUP
+    if (ln and dtype == torch.bfloat16 and N == 64 and d == _TC_HEAD_DIM
+            and C % _TC_GROUP == 0 and groups in (1, 2, 4)):
+        return ("tc", _TC_BWD_ROWS // groups)
+    return ("fma",)
 
 
 def _wgrad(lib, name, A, lda, B, ldb, n_tok, M, Ncol):
@@ -607,17 +640,73 @@ def _reduce(lib, name, part):
     return out
 
 
+def _attn_bwd_tokens(name, lib, plan, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, window,
+                     num_heads, shift, eps, parts=3, scratch=None):
+    """K6's or K9's per-token kernels, those ``plan`` (``attn_bwd_plan``)
+    names: (dx, xn_s, go_s, o_s [n_tok, C], dqkv_s [n_tok, 3C] in x's dtype,
+    rows window-major; dbias_part [B, nWin * h * N * N], ln_part [blocks, 2C]
+    fp32: the partials of dLN1). The tensor-core dx kernel also sums go and
+    dqkv over its rows: its ln_part is [blocks, 6C], the partials of dLN1, of
+    the proj bias gradient and of the qkv bias gradient. ``parts`` 1 launches
+    the per-window kernel alone, 2 the dx kernel alone, 3 both; ``scratch``,
+    the tuple of an earlier call, is written over instead of new buffers (to
+    time one kernel alone)."""
+    B, H, W, C = x.shape
+    dt = x.dtype
+    h, N = num_heads, window * window
+    nH, nW = H // window, W // window
+    d = C // h
+    n_tok = B * H * W
+    if plan[0] == "tc":
+        rows = plan[1]
+    else:
+        if lib.swin_train_smem(0, x.element_size(), N, C, d, 0) > lib.swin_train_smem_limit():
+            raise ValueError(f"{name}: N={N}, C={C}, head dim {d} in {x.element_size()}-byte "
+                             f"floats needs more than the card's {lib.swin_train_smem_limit()} "
+                             "bytes of shared memory per block")
+        rows = _train_rows(name, lib, 1, x.element_size(), C,
+                           [r for r in range(N, 0, -8) if N % r == 0])
+    if scratch is None:
+        new = lambda *s, dtype=dt: torch.empty(*s, dtype=dtype, device=x.device)
+        scratch = (torch.empty_like(x), new(n_tok, C), new(n_tok, C), new(n_tok, C),
+                   new(n_tok, 3 * C), new(B, nH * nW * h * N * N, dtype=torch.float32),
+                   new(math.ceil(n_tok / rows) if ln is not None else 1,
+                       (6 if plan[0] == "tc" else 2) * C, dtype=torch.float32))
+    dx, xn_s, go_s, o_s, dqkv_s, dbias_part, ln_part = scratch
+    ptr = lambda t: None if t is None else t.data_ptr()
+    ln1_s, ln1_b = ln if ln is not None else (None, None)
+    tail = (bias.data_ptr(), dx.data_ptr(), xn_s.data_ptr(), go_s.data_ptr(), o_s.data_ptr())
+    if plan[0] == "tc":
+        # kernel A stages proj_w^T for do = go Wproj^T and kernel B qkv_w^T for
+        # dxn = dqkv Wqkv^T, rows along the output columns: copies made once a call
+        proj_wt, qkv_wt = proj_w.t().contiguous(), qkv_w.t().contiguous()
+        rc = lib.swin_attn_bwd_tc(
+            parts, x.data_ptr(), g.data_ptr(), m1.data_ptr(), ln1_s.data_ptr(),
+            ln1_b.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), proj_wt.data_ptr(),
+            qkv_wt.data_ptr(), *tail, dqkv_s.data_ptr(), dbias_part.data_ptr(),
+            ln_part.data_ptr(), B, H, W, C, h, shift, float(eps), _scale(d, dt), _stream(x))
+    else:
+        do_s = torch.empty(n_tok, C, dtype=dt, device=x.device)
+        rc = lib.swin_attn_bwd(
+            _DTYPES[dt], int(ln is not None), parts, x.data_ptr(), g.data_ptr(), ptr(m1),
+            ptr(ln1_s), ptr(ln1_b), qkv_w.data_ptr(), qkv_b.data_ptr(), proj_w.data_ptr(),
+            *tail, do_s.data_ptr(), dqkv_s.data_ptr(), dbias_part.data_ptr(),
+            ln_part.data_ptr(), B, H, W, C, h, window, shift, rows, float(eps), _scale(d, dt),
+            _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    return scratch
+
+
 def _attn_bwd_launch(name, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, window, num_heads,
                      shift, eps):
     """K6 (``ln`` None) or K9 (``ln`` = (ln1_s, ln1_b), ``g`` = dy, ``m1``):
-    (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias[, dln1_s, dln1_b]), the
-    gradients fp32."""
+    ((dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias[, dln1_s, dln1_b]), the
+    gradients fp32; whether the per-token kernels ran on the tensor cores)."""
     B, H, W, C, N, d = _geometry(name, x, window, num_heads, shift)
     dt = x.dtype
     h = num_heads
     nH, nW = H // window, W // window
-    if d % 8:
-        raise ValueError(f"{name}: head dim {d} is not a multiple of 8")
     shapes = [("x", x, (B, H, W, C), dt), ("g", g, (B, H, W, C), dt),
               ("qkv_w", qkv_w, (C, 3 * C), dt), ("qkv_b", qkv_b, (3 * C,), dt),
               ("proj_w", proj_w, (C, C), dt),
@@ -626,40 +715,27 @@ def _attn_bwd_launch(name, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, window, num
         shapes += [("ln1_s", ln[0], (C,), dt), ("ln1_b", ln[1], (C,), dt),
                    ("m1", m1, (B,), torch.float32)]
     _check(name, shapes, x.device)
+    plan = attn_bwd_plan(dt, N, C, d, ln is not None)
+    if plan[0] == "tc":
+        for n, t, _, _ in shapes:
+            if t.data_ptr() % 16:   # 16-byte vector loads and cp.async
+                raise ValueError(f"{name}: {n} must be 16-byte aligned")
     lib = _train_lib()
-    limit = lib.swin_train_smem_limit()
-    if lib.swin_train_smem(0, x.element_size(), N, C, d, 0) > limit:
-        raise ValueError(f"{name}: N={N}, C={C}, head dim {d} in {x.element_size()}-byte "
-                         f"floats needs more than the card's {limit} bytes of shared memory "
-                         "per block")
-    rows = _train_rows(name, lib, 1, x.element_size(), C,
-                       [r for r in range(N, 0, -8) if N % r == 0])
     n_tok = B * H * W
-    new = lambda *s, dtype=dt: torch.empty(*s, dtype=dtype, device=x.device)
-    dx = torch.empty_like(x)
-    xn_s, go_s, o_s, do_s = (new(n_tok, C) for _ in range(4))
-    dqkv_s = new(n_tok, 3 * C)
-    dbias_part = new(B, nH * nW * h * N * N, dtype=torch.float32)
-    ln_part = new(n_tok // rows if ln is not None else 1, 2 * C, dtype=torch.float32)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    rc = lib.swin_attn_bwd(
-        _DTYPES[dt], int(ln is not None), x.data_ptr(), g.data_ptr(), ptr(m1),
-        ptr(ln[0] if ln else None), ptr(ln[1] if ln else None), qkv_w.data_ptr(),
-        qkv_b.data_ptr(), proj_w.data_ptr(), bias.data_ptr(), dx.data_ptr(), xn_s.data_ptr(),
-        go_s.data_ptr(), o_s.data_ptr(), do_s.data_ptr(), dqkv_s.data_ptr(),
-        dbias_part.data_ptr(), ln_part.data_ptr(), B, H, W, C, h, window, shift, rows,
-        float(eps), _scale(d, dt), _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    grads = (dx, _wgrad(lib, name, xn_s, C, dqkv_s, 3 * C, n_tok, C, 3 * C)[0],
-             _wgrad(lib, name, None, 0, dqkv_s, 3 * C, n_tok, 1, 3 * C)[0].reshape(-1),
-             _wgrad(lib, name, o_s, C, go_s, C, n_tok, C, C)[0],
-             _wgrad(lib, name, None, 0, go_s, C, n_tok, 1, C)[0].reshape(-1),
+    dx, xn_s, go_s, o_s, dqkv_s, dbias_part, ln_part = _attn_bwd_tokens(
+        name, lib, plan, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, window, h, shift, eps)
+    sums = _reduce(lib, name, ln_part) if ln is not None else None
+    if plan[0] == "tc":
+        dqkv_b, dproj_b = sums[3 * C:], sums[2 * C:3 * C]
+    else:
+        dqkv_b = _wgrad(lib, name, None, 0, dqkv_s, 3 * C, n_tok, 1, 3 * C)[0].reshape(-1)
+        dproj_b = _wgrad(lib, name, None, 0, go_s, C, n_tok, 1, C)[0].reshape(-1)
+    grads = (dx, _wgrad(lib, name, xn_s, C, dqkv_s, 3 * C, n_tok, C, 3 * C)[0], dqkv_b,
+             _wgrad(lib, name, o_s, C, go_s, C, n_tok, C, C)[0], dproj_b,
              _reduce(lib, name, dbias_part).reshape(nH, nW, h, N, N))
-    if ln is None:
-        return grads
-    sums = _reduce(lib, name, ln_part)
-    return grads + (sums[:C], sums[C:])
+    if ln is not None:
+        grads += (sums[:C], sums[C:2 * C])
+    return grads, plan[0] == "tc"
 
 
 def _mlp_bwd_tokens(name, lib, plan, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps):
@@ -741,7 +817,7 @@ def window_attention_bwd(x, g, qkv_w, qkv_b, proj_w, proj_b, bias, window: int,
     if _route(x, "window_attention_bwd"):
         return window_attention_bwd_plain(x, g, qkv_w, qkv_b, proj_w, proj_b, bias, window,
                                           num_heads, shift)
-    dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias = _attn_bwd_launch(
+    (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias), _ = _attn_bwd_launch(
         "window_attention_bwd", x, g.contiguous(), None, None, qkv_w, qkv_b, proj_w, bias,
         window, num_heads, shift, 0.0)
     window_attention_bwd.launches += 1
@@ -764,15 +840,17 @@ def mlp_bwd(y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps: float):
 
 def attn_ln1_bwd(x, dy, m1, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, bias, window: int,
                  num_heads: int, shift: int, eps: float):
-    """K9: ``attn_ln1_bwd_plain`` for CPU tensors, the CUDA kernel for CUDA
-    tensors (same arguments and result)."""
+    """K9: ``attn_ln1_bwd_plain`` for CPU tensors, the CUDA kernels that
+    ``attn_bwd_plan`` and ``wgrad_plan`` name for CUDA tensors (same arguments
+    and result)."""
     if _route(x, "attn_ln1_bwd"):
         return attn_ln1_bwd_plain(x, dy, m1, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, bias, window,
                                   num_heads, shift, eps)
-    dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias, dln1_s, dln1_b = _attn_bwd_launch(
+    (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias, dln1_s, dln1_b), tc = _attn_bwd_launch(
         "attn_ln1_bwd", x, dy.contiguous(), m1, (ln1_s, ln1_b), qkv_w, qkv_b, proj_w, bias,
         window, num_heads, shift, eps)
     attn_ln1_bwd.launches += 1
+    attn_ln1_bwd.tc_launches += tc
     return dx, dln1_s, dln1_b, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias
 
 
@@ -900,5 +978,6 @@ def fused_swin_block_train(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
 for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train,
             window_attention_bwd, mlp_bwd, attn_ln1_bwd):
     _fn.launches = 0
-for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train, mlp_bwd, _wgrad):
+for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train, mlp_bwd,
+            attn_ln1_bwd, _wgrad):
     _fn.tc_launches = 0
