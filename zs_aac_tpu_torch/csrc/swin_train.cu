@@ -993,6 +993,7 @@ constexpr int kQkv = 3 * kD;         // q, k, v columns of one head
 constexpr int kKvLd = 40;            // row length of the 24-wide tiles: k, v, qs, staging
 constexpr int kPLd = 72;             // row length of the 64-wide tiles: rnd(p), rnd(ds)
 constexpr int kAttnGroups = 2;       // most column groups a per-window block holds
+constexpr int kRowChunks = 3;        // row passes: 8-channel chunks a lane holds (C / 24 lanes)
 // bytes of one (window, column group)'s head tiles: k, v, qs [64][kKvLd] and
 // rnd(p), rnd(ds) [64][kPLd]
 constexpr int kHeadTiles = (3 * kN * kKvLd + 2 * kN * kPLd) * 2;
@@ -1095,61 +1096,54 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
   cp_async_wait<0>();
   __syncthreads();
 
-  // 2. LN1(x) and go = rnd(dy rnd(m1)) in place, a row's channels in a
-  // lane's registers (16 lanes a row at C = 96, else a warp); the block's
-  // columns of both to scratch.
+  // 2. LN1(x) and go = rnd(dy rnd(m1)) in place, L = C / 24 lanes a row
+  // holding its channels in registers (32 / L rows of a warp at once); the
+  // block's columns of both to scratch.
   {
-    const int L = n8 <= 16 ? 16 : 32, sl = lane & (L - 1);
+    const int L = n8 / kRowChunks, sl = lane % L;
     const int row_groups = (kThreads / 32) * (32 / L), rg = warp * (32 / L) + lane / L;
     const int c8_lo = cg0 * (kGroup / 8), c8_hi = (cg0 + gb) * (kGroup / 8);
     for (int r = rg; r < M; r += row_groups) {
       const int gw = win0 + r / kN;
       const bool valid = gw < total;
       const int64_t srow = static_cast<int64_t>(gw) * kN + r % kN;
-      float v[kLnChunks][8];
+      float v[kRowChunks][8];
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kLnChunks; ++j) {
-        const int c8 = sl + j * L;
-        if (c8 < n8) {
-          unpack8(*reinterpret_cast<const uint4*>(xn + r * lda + c8 * 8), v[j]);
+      for (int j = 0; j < kRowChunks; ++j) {
+        unpack8(*reinterpret_cast<const uint4*>(xn + r * lda + (sl + j * L) * 8), v[j]);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) sum += v[j][i];
-        }
+        for (int i = 0; i < 8; ++i) sum += v[j][i];
       }
       for (int o = L / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       const float mu = sum / C;
       float sq = 0.f;
 #pragma unroll
-      for (int j = 0; j < kLnChunks; ++j) {
-        if (sl + j * L < n8) {
+      for (int j = 0; j < kRowChunks; ++j) {
 #pragma unroll
-          for (int i = 0; i < 8; ++i) sq += (v[j][i] - mu) * (v[j][i] - mu);
-        }
+        for (int i = 0; i < 8; ++i) sq += (v[j][i] - mu) * (v[j][i] - mu);
       }
       for (int o = L / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
       const float iv = 1.f / sqrtf(sq / C + p.eps);
       const float m1 = valid ? rnd<bf16>(p.m1[gw / nWin]) : 0.f;
 #pragma unroll
-      for (int j = 0; j < kLnChunks; ++j) {
+      for (int j = 0; j < kRowChunks; ++j) {
         const int c8 = sl + j * L;
-        if (c8 < n8) {
-          float sc[8], bb[8], gv[8];
-          unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
-          unpack8(*reinterpret_cast<const uint4*>(p.ln1_b + c8 * 8), bb);
-          unpack8(*reinterpret_cast<const uint4*>(gt + r * lda + c8 * 8), gv);
+        float sc[8], bb[8], gv[8];
+        unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
+        unpack8(*reinterpret_cast<const uint4*>(p.ln1_b + c8 * 8), bb);
+        unpack8(*reinterpret_cast<const uint4*>(gt + r * lda + c8 * 8), gv);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            v[j][i] = (v[j][i] - mu) * iv * sc[i] + bb[i];
-            gv[i] *= m1;
-          }
-          const uint4 xv = pack8(v[j]), zv = pack8(gv);
-          *reinterpret_cast<uint4*>(xn + r * lda + c8 * 8) = xv;
-          *reinterpret_cast<uint4*>(gt + r * lda + c8 * 8) = zv;
-          if (valid && c8 >= c8_lo && c8 < c8_hi) {
-            *reinterpret_cast<uint4*>(p.xn_s + srow * C + c8 * 8) = xv;
-            *reinterpret_cast<uint4*>(p.go_s + srow * C + c8 * 8) = zv;
-          }
+        for (int i = 0; i < 8; ++i) {
+          v[j][i] = (v[j][i] - mu) * iv * sc[i] + bb[i];
+          gv[i] *= m1;
+        }
+        const uint4 xv = pack8(v[j]), zv = pack8(gv);
+        *reinterpret_cast<uint4*>(xn + r * lda + c8 * 8) = xv;
+        *reinterpret_cast<uint4*>(gt + r * lda + c8 * 8) = zv;
+        if (valid && c8 >= c8_lo && c8 < c8_hi) {
+          *reinterpret_cast<uint4*>(p.xn_s + srow * C + c8 * 8) = xv;
+          *reinterpret_cast<uint4*>(p.go_s + srow * C + c8 * 8) = zv;
         }
       }
     }
@@ -1402,7 +1396,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
 // Kernel B's shared memory: the bf16 dqkv row tile [M][3C + 8] (at 0; the
 // fp32 dxn tile [M][C + 8] lies over it after the product), the x and dy row
 // tiles [M][C + 8], the slab buffers [3][32][odd_ld(C)], over which the
-// partial sums [row groups][3][C] lie at the end.
+// partial sums [warps][3][C] lie at the end.
 struct DxSmem {
   int x, dy, slab, total;
 };
@@ -1478,55 +1472,50 @@ __global__ void __launch_bounds__(kThreads, 1) attn_dx_kernel(AttnBwdTc p) {
   }
   __syncthreads();
 
-  // 3. The LN1 backward per row, a lane summing its channels over its rows.
-  const int L = n8 <= 16 ? 16 : 32, sl = lane & (L - 1);
+  // 3. The LN1 backward per row, L = C / 24 lanes a row (32 / L rows of a
+  // warp at once); a lane sums its channels over its rows, then over the
+  // warp's lanes that hold the same channels, in a fixed order.
+  const int L = n8 / kRowChunks, sl = lane % L;
   const int row_groups = (kThreads / 32) * (32 / L), rg = warp * (32 / L) + lane / L;
-  float s1[kLnChunks][8] = {}, s2[kLnChunks][8] = {}, s3[kLnChunks][8] = {};
+  float s1[kRowChunks][8] = {}, s2[kRowChunks][8] = {}, s3[kRowChunks][8] = {};
   for (int r = rg; r < M; r += row_groups) {
     const bool valid = t0 + r < p.n_tok;
     const int64_t off = valid ? tok(t0 + r) : 0;
     const float m1 = valid ? rnd<bf16>(p.m1[(t0 + r) / kN / nWin]) : 0.f;
-    float xh[kLnChunks][8], d[kLnChunks][8];
+    float xh[kRowChunks][8], d[kRowChunks][8];
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kLnChunks; ++j) {
-      const int c8 = sl + j * L;
-      if (c8 < n8) {
-        unpack8(*reinterpret_cast<const uint4*>(xt + r * lda + c8 * 8), xh[j]);
+    for (int j = 0; j < kRowChunks; ++j) {
+      unpack8(*reinterpret_cast<const uint4*>(xt + r * lda + (sl + j * L) * 8), xh[j]);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) sum += xh[j][i];
-      }
+      for (int i = 0; i < 8; ++i) sum += xh[j][i];
     }
     for (int o = L / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
     const float mu = sum / C;
     float sq = 0.f;
 #pragma unroll
-    for (int j = 0; j < kLnChunks; ++j) {
-      if (sl + j * L < n8) {
+    for (int j = 0; j < kRowChunks; ++j) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) sq += (xh[j][i] - mu) * (xh[j][i] - mu);
-      }
+      for (int i = 0; i < 8; ++i) sq += (xh[j][i] - mu) * (xh[j][i] - mu);
     }
     for (int o = L / 2; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
     const float iv = 1.f / sqrtf(sq / C + p.eps);
     float sa = 0.f, sb = 0.f;
 #pragma unroll
-    for (int j = 0; j < kLnChunks; ++j) {
+    for (int j = 0; j < kRowChunks; ++j) {
       const int c8 = sl + j * L;
-      if (c8 < n8) {
-        float sc[8];
-        unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
-        const float4 da = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8);
-        const float4 db = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8 + 4);
-        d[j][0] = da.x; d[j][1] = da.y; d[j][2] = da.z; d[j][3] = da.w;
-        d[j][4] = db.x; d[j][5] = db.y; d[j][6] = db.z; d[j][7] = db.w;
+      float sc[8];
+      unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
+      const float4 da = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8);
+      const float4 db = *reinterpret_cast<const float4*>(dt + r * lda + c8 * 8 + 4);
+      d[j][0] = da.x; d[j][1] = da.y; d[j][2] = da.z; d[j][3] = da.w;
+      d[j][4] = db.x; d[j][5] = db.y; d[j][6] = db.z; d[j][7] = db.w;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          xh[j][i] = (xh[j][i] - mu) * iv;
-          const float gs = d[j][i] * sc[i];
-          sa += gs;
-          sb += gs * xh[j][i];
-        }
+      for (int i = 0; i < 8; ++i) {
+        xh[j][i] = (xh[j][i] - mu) * iv;
+        const float gs = d[j][i] * sc[i];
+        sa += gs;
+        sb += gs * xh[j][i];
       }
     }
     for (int o = L / 2; o > 0; o >>= 1) {
@@ -1535,41 +1524,50 @@ __global__ void __launch_bounds__(kThreads, 1) attn_dx_kernel(AttnBwdTc p) {
     }
     const float ma = sa / C, mb = sb / C;
 #pragma unroll
-    for (int j = 0; j < kLnChunks; ++j) {
+    for (int j = 0; j < kRowChunks; ++j) {
       const int c8 = sl + j * L;
-      if (c8 < n8) {
-        float sc[8], out[8];
-        unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
-        unpack8(*reinterpret_cast<const uint4*>(yt + r * lda + c8 * 8), out);
+      float sc[8], out[8];
+      unpack8(*reinterpret_cast<const uint4*>(p.ln1_s + c8 * 8), sc);
+      unpack8(*reinterpret_cast<const uint4*>(yt + r * lda + c8 * 8), out);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float du = (d[j][i] * sc[i] - ma - xh[j][i] * mb) * iv;
-          s3[j][i] += rnd<bf16>(out[i] * m1);
-          out[i] += rnd<bf16>(du);
-          s1[j][i] += d[j][i] * xh[j][i];
-          s2[j][i] += d[j][i];
-        }
-        if (valid) *reinterpret_cast<uint4*>(p.dx + off + c8 * 8) = pack8(out);
+      for (int i = 0; i < 8; ++i) {
+        const float du = (d[j][i] * sc[i] - ma - xh[j][i] * mb) * iv;
+        s3[j][i] += rnd<bf16>(out[i] * m1);
+        out[i] += rnd<bf16>(du);
+        s1[j][i] += d[j][i] * xh[j][i];
+        s2[j][i] += d[j][i];
+      }
+      if (valid) *reinterpret_cast<uint4*>(p.dx + off + c8 * 8) = pack8(out);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRowChunks; ++j) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      for (int o = L; o < 32; o <<= 1) {
+        s1[j][i] += __shfl_xor_sync(0xffffffffu, s1[j][i], o);
+        s2[j][i] += __shfl_xor_sync(0xffffffffu, s2[j][i], o);
+        s3[j][i] += __shfl_xor_sync(0xffffffffu, s3[j][i], o);
       }
     }
   }
-  float* psum = reinterpret_cast<float*>(slab);  // [row_groups][3][C]
+  float* psum = reinterpret_cast<float*>(slab);  // [warps][3][C]
+  if (lane < L) {
 #pragma unroll
-  for (int j = 0; j < kLnChunks; ++j) {
-    const int c8 = sl + j * L;
-    if (c8 < n8) {
+    for (int j = 0; j < kRowChunks; ++j) {
+      const int c = (sl + j * L) * 8;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        psum[(rg * 3) * C + c8 * 8 + i] = s1[j][i];
-        psum[(rg * 3 + 1) * C + c8 * 8 + i] = s2[j][i];
-        psum[(rg * 3 + 2) * C + c8 * 8 + i] = s3[j][i];
+        psum[(warp * 3) * C + c + i] = s1[j][i];
+        psum[(warp * 3 + 1) * C + c + i] = s2[j][i];
+        psum[(warp * 3 + 2) * C + c + i] = s3[j][i];
       }
     }
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < 3 * C; idx += kThreads) {
     float sum = 0.f;
-    for (int q = 0; q < row_groups; ++q) sum += psum[q * 3 * C + idx];
+    for (int q = 0; q < kThreads / 32; ++q) sum += psum[q * 3 * C + idx];
     part[idx] = sum;
   }
 }
@@ -1616,12 +1614,12 @@ extern "C" int swin_train_smem_limit() { return smem_limit(); }
 // nWin, heads, N, N] and ln_part [B * nWin * N / rows, 2, C] fp32. Returns
 // cudaGetLastError() as an int.
 extern "C" int swin_attn_bwd(int dtype, int ln, int parts, const void* x, const void* g,
-                             const void* m1, const void* ln1_s, const void* ln1_b, const void* qkv_w,
-                             const void* qkv_b, const void* proj_w, const void* bias, void* dx,
-                             void* xn_s, void* go_s, void* o_s, void* do_s, void* dqkv_s,
-                             void* dbias_part, void* ln_part, int B, int H, int W, int C,
-                             int heads, int window, int shift, int rows, float eps, float scale,
-                             void* stream) {
+                             const void* m1, const void* ln1_s, const void* ln1_b,
+                             const void* qkv_w, const void* qkv_b, const void* proj_w,
+                             const void* bias, void* dx, void* xn_s, void* go_s, void* o_s,
+                             void* do_s, void* dqkv_s, void* dbias_part, void* ln_part, int B,
+                             int H, int W, int C, int heads, int window, int shift, int rows,
+                             float eps, float scale, void* stream) {
   const int N = window * window;
   if (heads <= 0 || C % heads || (C / heads) % 8 || N % 8 || H % window || W % window ||
       rows <= 0 || rows % 8 || N % rows || (ln && m1 == nullptr) || parts < 1 || parts > 3) {
