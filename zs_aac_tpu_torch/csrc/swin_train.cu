@@ -26,28 +26,29 @@
 // Design. The TPU kernels accumulate every weight gradient across a
 // sequential grid; here blocks run in parallel, so each kernel is split:
 // - a per-window (K6/K9) or per-row-group (K8) kernel does the per-token
-//   work as K3 does (K6/K9: one block per 8x8 window, one head at a time, the
-//   cyclic shift folded into the index arithmetic on x, on the cotangents
-//   and on dx alike) and writes the operands of the weight-gradient products
-//   (LN'd input, go, o, dqkv; LN2(y), gz, gelu(h), dh) to scratch in the
-//   activation dtype, rounded where the TPU kernel rounds them, plus fp32
-//   per-block partials of the small reductions (dbias per batch row, the LN
-//   gradients, K8's fc1 bias gradient, which sums dh before rounding);
-// - dx of K6/K9 comes from a second per-row-group kernel, dqkv Wqkv^T
-//   accumulated over 64-wide chunks in fp32 shared memory, then K9's LN1
-//   backward and residual;
+//   work as K3 does (K6/K9: blocks over 8x8 windows, the cyclic shift folded
+//   into the index arithmetic on x, on the cotangents and on dx alike) and
+//   writes the operands of the weight-gradient products (LN'd input, go, o,
+//   dqkv; LN2(y), gz, gelu(h), dh) to scratch in the activation dtype,
+//   rounded where the TPU kernel rounds them, plus fp32 per-block partials
+//   of the small reductions (dbias per batch row, the LN gradients, K8's fc1
+//   bias gradient, which sums dh before rounding);
+// - dx of K6/K9 comes from a second per-row-group kernel, dqkv Wqkv^T, then
+//   K9's LN1 backward and residual;
 // - every weight gradient is a hand-written split-token product: each block
 //   sums A^T B over one output tile and one chunk of tokens into an fp32
 //   partial; a reduction kernel then adds the partials in a fixed order. No
 //   atomics: results are deterministic run to run.
 //
-// Two instantiations of K8's per-token kernel and of the split-token product,
-// chosen by shape in ops/window_attn.py::mlp_bwd_plan and ::wgrad_plan:
+// Two instantiations of K8's and K9's per-token kernels and of the
+// split-token product, chosen by shape in ops/window_attn.py::mlp_bwd_plan,
+// ::attn_bwd_plan and ::wgrad_plan:
 //
 // 1. The tensor-core kernels (namespace tc; bf16). K8 at C = 96, 192, 384
-//    with hidden = 4C (HTSAT's stages 1-3); the product where both output
-//    dimensions are multiples of 96 (every weight gradient of K6, K8 and K9
-//    at HTSAT's widths).
+//    with hidden = 4C and K9 at C = 96, 192, 384 with 8x8 windows and head
+//    dim 24 (HTSAT's stages 1-3: every shape the train step gives them); the
+//    product where both output dimensions are multiples of 96 (every weight
+//    gradient of K6, K8 and K9 at HTSAT's widths).
 //    - K8 (mlp_bwd_kernel): the forward's layout (window_attn.cu, namespace
 //      tc): a warp owns 16 rows and one column group of 96 channels, a block
 //      is 8 warps = (M / 16) x (C / 96) over M = 128, 64 or 32 consecutive
@@ -66,6 +67,34 @@
 //      also sums its channels of dyn, dyn xhat and gz over its rows: the
 //      partials of dLN2 and of the fc2 bias gradient. 32 + 32 + 48
 //      accumulators a thread: 256 threads and one block an SM, no spills.
+//    - K9, kernel A (attn_bwd_kernel), the forward's layout again: a warp
+//      owns 16 query rows and one column group of 96 channels = 4 heads, a
+//      block is 8 warps: two windows of one group at C = 96, one window of
+//      two groups at C = 192, and at C = 384 a window's four groups split
+//      over two blocks (each recomputes LN1 of the window's rows: one
+//      window's tiles for four groups would need ~310 KB of shared memory).
+//      The rows of x and dy arrive once, 16 bytes a thread; LN1(x) and go =
+//      dy m1 go into row tiles (and to scratch), and do = go Wproj^T is one
+//      staged product over go's tile (Wproj^T a copy the wrapper makes once
+//      a call) whose result lies over go. Per head: qkv recomputed as in the
+//      forward, qs kept as A fragments, k, v and qs in bf16 tiles; scores,
+//      bias, softmax and the rounded p on the fragments (p stays fp32 in
+//      registers); o = rnd(p) v; dp = do v^T; ds = p (dp - rowsum(dp p)) with
+//      the row sums by quad shuffles, its fp32 values straight from the
+//      fragments to the dbias partial of the batch row; dq = rnd(ds) k. After
+//      one barrier on the head's rnd(p) and rnd(ds) tiles [64][72] of all 64
+//      rows, a warp takes 16 key rows: dk = rnd(ds)^T qs and dv = rnd(p)^T do,
+//      the A fragments of the transposes by ldmatrix.trans. o, dq, dk and dv
+//      leave through a per-warp staging tile, 16 bytes a lane. 167 registers,
+//      no spills; one block an SM (145 / 158 / 207 KB of shared memory).
+//    - K9, kernel B (attn_dx_kernel), K8's form: a warp owns 16 rows and 96
+//      output columns over 128 / (C / 96) window-major scratch rows; dxn =
+//      dqkv Wqkv^T (K = 3C; Wqkv^T a copy made once a call) in registers,
+//      rounded into an fp32 tile over the dqkv rows, then the LN1 backward
+//      with the statistics recomputed from x, dx written at the tokens'
+//      places. C / 24 lanes take a row, 3 chunks of 8 channels a lane. It also
+//      sums go and dqkv over its rows: the partials of the proj and qkv bias
+//      gradients come with dLN1's, and no column-sum launch is left.
 //    - The product (tc::wgrad_kernel): tokens are the k direction. 96 x 96
 //      output tiles (they divide every width: nothing is padded), 4 warps of
 //      48 x 48, both operands' tiles [32 tokens][96 columns] through three
@@ -73,17 +102,18 @@
 //      end), and both fragments by ldmatrix.trans: A's tile is [k][m], so
 //      its transpose is the row-major A operand. At HTSAT's shapes it runs
 //      at the rate the scratch can be read at.
-// 2. The FMA kernels (mlp_bwd_a, wgrad_kernel; fp32, whose fixtures TF32
-//    would break, bf16 at other widths, and the column sums, which are bound
-//    by bytes): fp32 channel-major shared tiles, 64 x 64 output tiles,
-//    CUDA-core FMAs through block_gemm, as K6 and K9 (head dim 24, as in K3);
-//    per-head buffers stay under the shared-memory limit up to C=768 in bf16
-//    and C=384 in fp32.
+// 2. The FMA kernels (attn_bwd_a, attn_bwd_b, mlp_bwd_a, wgrad_kernel; K6
+//    at every shape, fp32, whose fixtures TF32 would break, bf16 at other
+//    widths, and the column sums, which are bound by bytes): fp32
+//    channel-major shared tiles, 64 x 64 output tiles, CUDA-core FMAs through
+//    block_gemm, one head at a time; per-head buffers stay under the
+//    shared-memory limit up to C=768 in bf16 and C=384 in fp32.
 //
 // Numerics (the JAX kernels' rounding points): in the activation dtype T
-// these round: go, do, dq (then dq * scale), dk, dv, dxn, gz, gelu(h), dh,
-// the LN outputs and dx; softmax, ds, dp, LN statistics and every sum stay
-// fp32. GELU and its derivative are exact (erff).
+// these round: go, qkv, qs, p (for o and dv), o, do, ds (for dq and dk), dq
+// (then dq * scale), dk, dv, dxn, gz, gelu(h), dh, the LN outputs and dx;
+// softmax, ds for dbias, dp, LN statistics and every sum stay fp32. GELU and
+// its derivative and the softmax's expf are exact (no fast math).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC.
@@ -610,10 +640,10 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kGroup = 96;     // channels per warp column group
 constexpr int kFc1 = 64;       // hidden columns per warp and chunk
-constexpr int kThreads = 256;  // K8: 8 warps = (rows / 16) x (C / 96)
-constexpr int kRows = 128;     // K8: rows a block times column groups
-constexpr int kCopies = 6;     // K8: a 32 x 392 slab over 256 threads
-constexpr int kLnChunks = 2;   // 8-channel chunks a lane holds of a row: C <= 512
+constexpr int kThreads = 256;  // K8, K9: 8 warps = (rows / 16) x (column groups)
+constexpr int kRows = 128;     // K8, K9's dx kernel: rows a block times column groups
+constexpr int kCopies = 6;     // K8, K9's dx kernel: a 32 x 392 slab over 256 threads
+constexpr int kLnChunks = 2;   // K8: 8-channel chunks a lane holds of a row: C <= 512
 
 struct MlpBwdTc {
   const bf16 *y, *g, *ln2_s, *ln2_b, *fc1_w, *fc1_b, *fc2_wt, *fc1_wt;
