@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from zs_aac_tpu.models.gpt2 import _quantize_vec
-from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8
+from zs_aac_tpu_torch.ops.decode_attn import decode_attn_plan, decode_attn_q8
 
 torch.set_num_threads(2)
 
@@ -65,3 +65,28 @@ def test_plain_matches_jax_gpt2_step_q8_attention(B, d, index):
     np.testing.assert_allclose(o.numpy(), want[0], atol=1e-5, rtol=1e-5)
     for got, ref in zip((ck, cv, sk, sv), want[1:]):
         np.testing.assert_array_equal(got.numpy(), ref)   # row index written, others kept
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d,vec", [(16, 16), (24, 8), (64, 16), (128, 16), (12, 4), (2, 2)])
+def test_plan_picks_the_widest_load_that_divides_a_row(d, vec, dtype):
+    """A cache row is d // vec lanes of one vec-byte load each; 4 warps a
+    block, one (b, h) each, at the decode's row counts."""
+    for n_rows in (1, 13, 77):
+        assert decode_attn_plan(dtype, d, n_rows) == (vec, 4)
+
+
+def test_plan_halves_the_warps_for_long_caches_and_refuses_what_the_kernel_does_not_take():
+    # the score strips: 4 bytes a row a warp within 48 KB
+    assert decode_attn_plan(torch.bfloat16, 64, 3072) == (16, 4)
+    assert decode_attn_plan(torch.bfloat16, 64, 3073) == (16, 2)
+    assert decode_attn_plan(torch.bfloat16, 64, 12288) == (16, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_attn_plan(torch.bfloat16, 64, 12289)
+    with pytest.raises(ValueError, match="32"):
+        decode_attn_plan(torch.float32, 33, 8)          # 33 one-byte loads a row
+    with pytest.raises(ValueError):
+        decode_attn_plan(torch.float32, 0, 8)
+    for dtype in (torch.float16, torch.int8, torch.float64):
+        with pytest.raises(TypeError):
+            decode_attn_plan(dtype, 64, 8)

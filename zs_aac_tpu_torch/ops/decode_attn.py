@@ -20,12 +20,15 @@ the softmax, which gives them an exact 0 weight, so reading only the valid
 rows computes the same function.
 
 Bound: bytes (each valid int8 row and its scales are read once; ~2 flops per
-cache byte). ``decode_attn_q8.launches`` counts kernel launches.
+cache byte). One warp per (b, h); ``decode_attn_plan`` (a rule on the dtype,
+the head dim and the rows read) picks the width of a lane's cache loads and
+the warps a block. ``decode_attn_q8.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -33,11 +36,11 @@ import torch
 from zs_aac_tpu_torch.ops.quant import div, quantize_vec
 from zs_aac_tpu_torch.utils.cuda_build import load_library
 
-__all__ = ["decode_attn_q8", "decode_attn_q8_plain"]
+__all__ = ["decode_attn_plan", "decode_attn_q8", "decode_attn_q8_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_THREADS = 128       # kThreads in csrc/decode_attn.cu
-_SMEM_LIMIT = 48 * 1024
+_WARPS = 4             # (b, h) a block (kMaxWarps in csrc/decode_attn.cu)
+_SMEM_LIMIT = 48 * 1024  # dynamic shared memory a launch may take without opting in
 
 
 def decode_attn_q8_plain(q, k_new, v_new, ck, cv, sk, sv, index: int):
@@ -62,41 +65,72 @@ def decode_attn_q8_plain(q, k_new, v_new, ck, cv, sk, sv, index: int):
     return (p @ cv[:, :, :n].to(dt))[:, :, 0]
 
 
+@functools.lru_cache(maxsize=None)
+def decode_attn_plan(dtype, d: int, n_rows: int):
+    """How K1 launches for activations of ``dtype``, head dim ``d`` and
+    ``n_rows`` = index + 1 cache rows read: ``(vec, warps)``.
+
+    - ``vec``: int8 values a lane reads of a cache row in one load, the
+      widest of 16, 8, 4, 2, 1 bytes that divides ``d``; a row then takes
+      ``d // vec`` lanes of the warp (at most 32: d = 64 is 4 lanes of 16
+      bytes, d = 24 3 lanes of 8).
+    - ``warps``: (b, h) a block, one warp each: 4, halved while the warps'
+      score strips (``n_rows`` fp32 each) would pass 48 KB of shared memory.
+
+    Raises ``TypeError`` for a dtype the kernel does not take and
+    ``ValueError`` for a head dim or a row count it does not take. A rule on
+    shapes alone: a CUDA tensor launches what it names or raises."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"decode_attn_q8: unsupported activation dtype {dtype}")
+    if d <= 0 or n_rows <= 0:
+        raise ValueError(f"decode_attn_q8: head dim {d}, {n_rows} rows")
+    vec = next(v for v in (16, 8, 4, 2, 1) if d % v == 0)
+    if d // vec > 32:
+        raise ValueError(f"decode_attn_q8: head dim {d} is {d // vec} loads of {vec} bytes a "
+                         "row; a warp takes at most 32")
+    warps = _WARPS
+    while warps > 1 and 4 * warps * n_rows > _SMEM_LIMIT:
+        warps //= 2
+    if 4 * warps * n_rows > _SMEM_LIMIT:
+        raise ValueError(f"decode_attn_q8: {n_rows} cache rows need more than "
+                         f"{_SMEM_LIMIT} bytes of shared memory")
+    return vec, warps
+
+
 def _check(q, k_new, v_new, ck, cv, sk, sv, index):
-    B, H, d = q.shape
+    # runs before each of the decode's launches: tuples and ints, compared once
+    shape, dev = tuple(q.shape), q.get_device()
+    B, H, d = shape
     T = ck.shape[2]
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"decode_attn_q8: unsupported activation dtype {q.dtype}")
     for name, x in (("k_new", k_new), ("v_new", v_new)):
-        if x.shape != q.shape or x.dtype != q.dtype:
+        if tuple(x.shape) != shape or x.dtype != q.dtype:
             raise ValueError(f"decode_attn_q8: {name} must match q "
-                             f"({tuple(x.shape)} {x.dtype} vs {tuple(q.shape)} {q.dtype})")
+                             f"({tuple(x.shape)} {x.dtype} vs {shape} {q.dtype})")
     for name, x in (("q", q), ("k_new", k_new), ("v_new", v_new)):
-        if x.stride(2) != 1 or x.stride(1) != d:
+        if x.stride()[1:] != (d, 1):
             raise ValueError(f"decode_attn_q8: {name} rows must be contiguous [H, d]")
-    for name, x, dtype, shape in (("ck", ck, torch.int8, (B, H, T, d)),
-                                  ("cv", cv, torch.int8, (B, H, T, d)),
-                                  ("sk", sk, torch.float32, (B, H, T)),
-                                  ("sv", sv, torch.float32, (B, H, T))):
-        if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+    for name, x, dtype, want in (("ck", ck, torch.int8, (B, H, T, d)),
+                                 ("cv", cv, torch.int8, (B, H, T, d)),
+                                 ("sk", sk, torch.float32, (B, H, T)),
+                                 ("sv", sv, torch.float32, (B, H, T))):
+        if x.dtype != dtype or tuple(x.shape) != want or not x.is_contiguous():
             raise ValueError(f"decode_attn_q8: {name} must be a contiguous "
-                             f"{dtype} tensor of shape {shape}")
+                             f"{dtype} tensor of shape {want}")
     for x in (k_new, v_new, ck, cv, sk, sv):
-        if x.device != q.device:
+        if x.get_device() != dev:
             raise ValueError("decode_attn_q8: all tensors must be on one device")
     if not 0 <= index < T:
         raise IndexError(f"decode_attn_q8: index {index} outside the cache [0, {T})")
-    if d > _THREADS:
-        raise ValueError(f"decode_attn_q8: head dim {d} > {_THREADS}")
-    if 4 * (d + index + 1 + _THREADS) > _SMEM_LIMIT:
-        raise ValueError(f"decode_attn_q8: cache row {index} needs more than "
-                         f"{_SMEM_LIMIT} bytes of shared memory")
+    vec, warps = decode_attn_plan(q.dtype, d, index + 1)
+    if ck.data_ptr() % vec or cv.data_ptr() % vec:
+        raise ValueError(f"decode_attn_q8: the caches must be {vec}-byte aligned")
+    return vec, warps
 
 
 def _kernel():
     fn = load_library("decode_attn").decode_attn_q8
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
                        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -104,18 +138,20 @@ def _kernel():
 
 
 def decode_attn_q8(q, k_new, v_new, ck, cv, sk, sv, index: int):
-    """K1: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors (same arguments and result as ``decode_attn_q8_plain``)."""
-    if q.device.type == "cpu":
+    """K1: the plain version for CPU tensors, the CUDA kernel that
+    ``decode_attn_plan`` names for CUDA tensors (same arguments and result as
+    ``decode_attn_q8_plain``)."""
+    dev = q.device
+    if dev.type == "cpu":
         return decode_attn_q8_plain(q, k_new, v_new, ck, cv, sk, sv, index)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"decode_attn_q8: no kernel for device {q.device}")
-    _check(q, k_new, v_new, ck, cv, sk, sv, index)
+    if dev.type != "cuda":
+        raise RuntimeError(f"decode_attn_q8: no kernel for device {dev}")
+    vec, warps = _check(q, k_new, v_new, ck, cv, sk, sv, index)
     B, H, d = q.shape
     fn = _kernel()
-    o = torch.empty((B, H, d), dtype=q.dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(_DTYPES[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+    o = torch.empty((B, H, d), dtype=q.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(_DTYPES[q.dtype], vec, warps, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             q.stride(0), k_new.stride(0), v_new.stride(0),
             ck.data_ptr(), cv.data_ptr(), sk.data_ptr(), sv.data_ptr(), o.data_ptr(),
             B, H, ck.shape[2], d, int(index), float(math.sqrt(d)), stream)
