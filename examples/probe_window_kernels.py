@@ -14,12 +14,14 @@ K5 per stage at B = 64 with CUDA events (``chip_smoke.timed_ms``). About 40 s.
 
 With ``--train`` it builds ``swin_train.cu`` instead, holds K8 and K9 (B = 3
 and 64, stages 1-3, bf16 and fp32; K9 at shift 0 and 4, bitwise equal run to
-run) and the split-token weight-gradient product (the shapes of K6, K8 and
-K9, a ragged token count) against their plain versions, and times, per stage
-at B = 64 in bf16, the parts of K8 (the per-token kernel, each weight
-product, the reductions) and of K9 (the per-window kernel, the dx kernel, each
-weight product and column sum, the reductions), K8 and K9 whole beside their
-plain versions and, at stage 4, K6. ``--fma`` sends bf16 through the FMA
+run), K6 in bf16 at C = 768 (B = 3 and 64, 8x8 and 16x16, shift 0 and 4,
+bitwise equal run to run) and the split-token weight-gradient product (the
+shapes of K6, K8 and K9, a ragged token count) against their plain versions,
+and times, per stage at B = 64 in bf16, the parts of K8 (the per-token
+kernel, each weight product, the reductions), of K9 (stages 1-3) and of K6
+(stage 4): the per-window kernel, the dx kernel, each weight product, the
+bias column sums or their reduction, the dbias reduction; then K8, K9 and K6
+whole beside their plain versions. ``--fma`` sends bf16 through the FMA
 kernels, whatever ``mlp_bwd_plan``, ``attn_bwd_plan`` and ``wgrad_plan`` say,
 to time them beside the tensor-core ones. About 90 s.
 
@@ -135,6 +137,28 @@ def check_k9(B, H, C, heads, shift, dtype, g):
     return not bad and same and dropped
 
 
+def check_k6(B, H, shift, dtype, g):
+    """K6 at C = 768 (stage 4 when H = 8), bitwise equal run to run."""
+    x, w, bias = cs._window_case(B, H, 768, 32, 8, dtype, g)
+    gout = torch.randn(B, H, H, 768, generator=g, device="cuda").to(dtype)
+    cfg = (8, 32, shift)
+    got = wa.window_attention_bwd(x, gout, *w[2:6], bias, *cfg)
+    again = wa.window_attention_bwd(x, gout, *w[2:6], bias, *cfg)
+    want = wa.window_attention_bwd_plain(x, gout, *w[2:6], bias, *cfg)
+    refs = wa.window_attention_bwd_plain(*cs._f32([x, gout] + w[2:6]), bias, *cfg)
+    torch.cuda.synchronize()
+    names = ["dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias"]
+    errs = {n: ((a.float() - b.float()).abs().max().item(), cs.train_tol(b, r))
+            for n, a, b, r in zip(names, got, want, refs)}
+    bad = [n for n, (e, tol) in errs.items() if not e <= tol]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"K6 {str(dtype)[6:]} B={B} {H}x{H}x768 shift={shift}: "
+          + ", ".join(f"{n} {e:.3g}/{tol:.3g}" for n, (e, tol) in errs.items())
+          + ("" if same else "  RUN TO RUN DIFFERS") + (f"  DISAGREES: {bad}" if bad else ""),
+          flush=True)
+    return not bad and same
+
+
 def check_wgrad(n_tok, M, Ncol, g):
     A = torch.randn(n_tok, M, generator=g, device="cuda").bfloat16()
     B = torch.randn(n_tok, Ncol, generator=g, device="cuda").bfloat16()
@@ -156,12 +180,32 @@ def time_train(H, C, heads, g):
     x, w, bias, gout, m1, m2 = cs._train_case(64, H, C, heads, torch.bfloat16, g)
     cfg = (8, heads, 4, 1e-6)
     line = f"[time] B=64 {H}x{H}x{C}:"
+    lib, n_tok, hidden = wa._train_lib(), 64 * H * H, 4 * C
     if C == 768:
+        plan6 = wa.attn_bwd_plan(torch.bfloat16, 64, C, C // heads, False)
+        args6 = ("probe", lib, plan6, x, gout, None, None, *w[2:5], bias, *cfg)
+        scratch = wa._attn_bwd_tokens(*args6)
+        _, xn_s, go_s, o_s, dqkv_s, dbias_part, ln_part = scratch
+        parts6 = {
+            "per-window": us(lambda r: wa._attn_bwd_tokens(*args6, parts=1, scratch=scratch)),
+            "dx": us(lambda r: wa._attn_bwd_tokens(*args6, parts=2, scratch=scratch)),
+            "dWqkv": us(lambda r: wa._wgrad(lib, "probe", xn_s, C, dqkv_s, 3 * C, n_tok, C,
+                                            3 * C)),
+            "dWproj": us(lambda r: wa._wgrad(lib, "probe", o_s, C, go_s, C, n_tok, C, C)),
+            # the tensor-core dx kernel sums go and dqkv itself
+            "dbqkv + dbproj": us(lambda r: (
+                wa._wgrad(lib, "probe", None, 0, dqkv_s, 3 * C, n_tok, 1, 3 * C),
+                wa._wgrad(lib, "probe", None, 0, go_s, C, n_tok, 1, C)))
+            if plan6[0] == "fma" else us(lambda r: wa._reduce(lib, "probe", ln_part)),
+            "reduce dbias": us(lambda r: wa._reduce(lib, "probe", dbias_part)),
+        }
         k6 = us(lambda r: wa.window_attention_bwd(x, gout, *w[2:6], bias, *cfg[:3]))
         p6 = us(lambda r: wa.window_attention_bwd_plain(x, gout, *w[2:6], bias, *cfg[:3]))
-        print(f"{line} K6 {k6:.1f} us, plain {p6:.1f} us", flush=True)
+        print(f"{line} K6 ({plan6[0]}) parts (" + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                         parts6.items())
+              + f") sum {sum(parts6.values()):.1f} us; K6 {k6:.1f} us, plain {p6:.1f} us",
+              flush=True)
         return
-    lib, n_tok, hidden = wa._train_lib(), 64 * H * H, 4 * C
     ln2_fc = w[6:11]
     plan = wa.mlp_bwd_plan(torch.bfloat16, n_tok, C, hidden)
     tokens = lambda r: wa._mlp_bwd_tokens("probe", lib, plan, x, gout, m2, *ln2_fc, 1e-6)
@@ -215,6 +259,8 @@ def main_train(flags):
     ok &= all([check_k9(B, H, C, heads, shift, dtype, g)
                for dtype in (torch.bfloat16, torch.float32) for B in (3, 64)
                for H, C, heads in cs.STAGES for shift in (0, 4)])
+    ok &= all([check_k6(B, H, shift, torch.bfloat16, g)
+               for B, H, shift in ((3, 8, 0), (64, 8, 0), (64, 8, 4), (3, 16, 4))])
     shapes = sorted({s for _, C, _ in STAGES
                      for s in ((C, 4 * C), (4 * C, C), (C, 3 * C), (C, C))})
     ok &= all([check_wgrad(n_tok, M, Ncol, g) for M, Ncol in shapes
@@ -223,6 +269,7 @@ def main_train(flags):
         time_train(H, C, heads, g)
     print(f"tensor-core launches: K8 {wa.mlp_bwd.tc_launches} of {wa.mlp_bwd.launches}, "
           f"K9 {wa.attn_ln1_bwd.tc_launches} of {wa.attn_ln1_bwd.launches}, "
+          f"K6 {wa.window_attention_bwd.tc_launches} of {wa.window_attention_bwd.launches}, "
           f"weight products {wa._wgrad.tc_launches}")
     print("all cases agree" if ok else "SOME CASES DISAGREE")
     sys.exit(0 if ok else 1)

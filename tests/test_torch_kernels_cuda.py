@@ -44,10 +44,18 @@ def _k1_inputs(B, H, T, d, dtype, seed):
             torch.rand(B, H, T, **f) * 0.05 + 1e-3, torch.rand(B, H, T, **f) * 0.05 + 1e-3]
 
 
+# Index 0 (the new row alone), the last row, and the full decode's T = 77 at
+# d = 64 (4 lanes of 16 bytes a row) and d = 24 (3 lanes of 8: 10 rows a pass,
+# two lanes idle); d = 16 and 128 are one and 8 lanes a row.
+K1_CASES = [(1, 4, 13, 16, 0), (1, 4, 13, 16, 12), (3, 4, 13, 64, 0), (3, 4, 13, 64, 12),
+            (8, 2, 13, 24, 0), (8, 2, 13, 24, 5), (8, 2, 13, 24, 12), (256, 12, 77, 64, 0),
+            (256, 12, 77, 64, 40), (256, 12, 77, 64, 76), (16, 12, 77, 24, 0),
+            (16, 12, 77, 24, 76), (4, 3, 77, 128, 76)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("B,H,T,d,index", [(1, 4, 13, 16, 0), (3, 4, 13, 64, 12),
-                                           (8, 2, 13, 24, 5), (256, 12, 77, 64, 40)])
+@pytest.mark.parametrize("B,H,T,d,index", K1_CASES)
 def test_k1_matches_plain(B, H, T, d, index, dtype):
     _need_cuda()
     a = _k1_inputs(B, H, T, d, dtype, seed=B + index)
@@ -61,6 +69,21 @@ def test_k1_matches_plain(B, H, T, d, index, dtype):
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
     for got, want in zip(a[3:], b[3:]):
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 24])
+def test_k1_is_deterministic(d):
+    """The row groups' partial outputs are summed by shuffles in a fixed
+    order: two calls on the same inputs give bitwise the same o and cache."""
+    _need_cuda()
+    a = _k1_inputs(256, 12, 77, d, torch.bfloat16, seed=d)
+    b = [x.clone() for x in a]
+    first, second = decode_attn_q8(*a, 60), decode_attn_q8(*b, 60)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    for x, y in zip(a[3:], b[3:]):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
@@ -579,6 +602,50 @@ def test_k6_matches_plain(B, H, C, heads, shift, dtype):
     for name, a, b, r in zip(["dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias"], got,
                              want, refs):
         _check(name, a, b, r)
+
+
+# K6 in bf16 at stage 4 (the tensor-core kernels A and B of K9 without LN1
+# and m1): an odd batch, the train step's batch, shift 0 and 4, and a 16x16
+# input (4 windows a sample) with and without the shift.
+K6_TC_CASES = [(3, 8, 0), (3, 8, 4), (64, 8, 0), (64, 8, 4), (3, 16, 0), (3, 16, 4)]
+K6_OUTPUTS = ["dx", "dqkv_w", "dqkv_b", "dproj_w", "dproj_b", "dbias"]
+
+
+def _k6_inputs(B, H, seed):
+    x, w, bias = _window_inputs(B, H, 768, 32, torch.bfloat16, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return x, torch.randn(B, H, H, 768, generator=gen, device="cuda").bfloat16(), w[2:6], bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,shift", K6_TC_CASES)
+def test_k6_tensor_core_kernel_matches_plain(B, H, shift):
+    _need_cuda()
+    x, g, w, bias = _k6_inputs(B, H, seed=B + H + shift)
+    fn = wa.window_attention_bwd
+    n = (fn.launches, fn.tc_launches, wa._wgrad.tc_launches)
+    got = fn(x, g, *w, bias, 8, 32, shift)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tc_launches, wa._wgrad.tc_launches) == (n[0] + 1, n[1] + 1, n[2] + 2)
+    want = wa.window_attention_bwd_plain(x, g, *w, bias, 8, 32, shift)
+    want32 = wa.window_attention_bwd_plain(*_f32([x, g] + w), bias, 8, 32, shift)
+    for name, a, b, r in zip(K6_OUTPUTS, got, want, want32):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _check(name, a, b, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,shift", [(8, 0), (16, 4)])
+def test_k6_is_deterministic(H, shift):
+    """No atomics: the dbias and bias partials are summed in a fixed order, so
+    two runs on the same inputs give bitwise the same six outputs."""
+    _need_cuda()
+    x, g, w, bias = _k6_inputs(8, H, seed=H)
+    first = wa.window_attention_bwd(x, g, *w, bias, 8, 32, shift)
+    second = wa.window_attention_bwd(x, g, *w, bias, 8, 32, shift)
+    torch.cuda.synchronize()
+    for name, a, b in zip(K6_OUTPUTS, first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

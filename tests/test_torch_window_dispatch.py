@@ -192,7 +192,7 @@ def test_cpu_route_of_the_train_backward_raises_no_count():
     keep = torch.tensor([1.0, 0.0])
     counts = lambda: (wa.mlp_bwd.launches, wa.mlp_bwd.tc_launches, wa.attn_ln1_bwd.launches,
                       wa.attn_ln1_bwd.tc_launches, wa.window_attention_bwd.launches,
-                      wa._wgrad.tc_launches)
+                      wa.window_attention_bwd.tc_launches, wa._wgrad.tc_launches)
     before = counts()
     k8 = wa.mlp_bwd(x, g, keep, *w[6:11], 1e-6)
     k9 = wa.attn_ln1_bwd(x, k8[0], keep, *w[:5], bias, 8, heads, 0, 1e-6)
@@ -209,7 +209,7 @@ def test_cpu_route_of_the_train_backward_raises_no_count():
     assert counts() == before and leaves[9].grad.shape == (C, 4 * C)
 
 
-# -- the train backward: K9's (and K6's) per-token kernels --------------------------
+# -- the train backward: the per-token kernels of K9 and K6 ------------------------
 
 
 @pytest.mark.parametrize("stage", sorted(TRAIN_STAGES))
@@ -226,19 +226,33 @@ def test_k9_bf16_stages_take_the_tensor_cores(stage):
         assert wa.wgrad_plan(torch.bfloat16, 64 * H * H, M, Ncol)[0] == "tc"
 
 
+@pytest.mark.parametrize("B", [1, 3, 64])
+def test_k6_bf16_stage4_takes_the_tensor_cores(B):
+    """K6 (the window-attention backward, no LN1, no m1) in bf16 at stage 4,
+    its one main-path shape: kernels A and B on the tensor cores, B's blocks 8
+    warps of 16 rows x 96 columns (16 rows at C = 768); both weight products
+    of the launch take the tensor cores too."""
+    plan = wa.attn_bwd_plan(torch.bfloat16, 64, 768, 24, False)
+    assert plan == ("tc", 16)
+    assert (plan[1] // 16) * (768 // 96) == 8
+    for M, Ncol in ((768, 3 * 768), (768, 768)):
+        assert wa.wgrad_plan(torch.bfloat16, B * 64, M, Ncol)[0] == "tc"
+
+
 @pytest.mark.parametrize("dtype,N,C,d,ln", [
     (torch.float32, 64, 96, 24, True),       # fp32: TF32 would break the fixtures
     (torch.float32, 64, 384, 24, True),
-    (torch.bfloat16, 64, 768, 24, False),    # K6 at stage 4, its main-path shape
+    (torch.float32, 64, 768, 24, False),     # K6 in fp32 at stage 4
     (torch.bfloat16, 64, 96, 24, False),     # K6 at a stage-1 shape
+    (torch.bfloat16, 64, 384, 24, False),    # K6 at a stage-3 shape
     (torch.bfloat16, 64, 768, 24, True),     # C = 768: no stage K9 runs at
     (torch.bfloat16, 64, 128, 32, True),     # d = 32
     (torch.bfloat16, 64, 96, 16, True),      # d = 16
     (torch.bfloat16, 16, 32, 8, True),       # 4x4 windows (the fixtures' tiny HTSAT)
     (torch.bfloat16, 32, 96, 24, True),      # N = 32
     (torch.bfloat16, 64, 288, 24, True),     # C = 3 x 96
-], ids=["fp32-C96", "fp32-C384", "k6-C768", "k6-C96", "C768", "d32", "d16", "4x4", "N32",
-        "C288"])
+], ids=["fp32-C96", "fp32-C384", "k6-fp32-C768", "k6-C96", "k6-C384", "C768", "d32", "d16",
+        "4x4", "N32", "C288"])
 def test_other_k9_and_k6_shapes_take_the_fma_kernels(dtype, N, C, d, ln):
     assert wa.attn_bwd_plan(dtype, N, C, d, ln) == ("fma",)
 

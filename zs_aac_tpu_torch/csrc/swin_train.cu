@@ -40,15 +40,16 @@
 //   partial; a reduction kernel then adds the partials in a fixed order. No
 //   atomics: results are deterministic run to run.
 //
-// Two instantiations of K8's and K9's per-token kernels and of the
+// Two instantiations of the per-token kernels of K6, K8 and K9 and of the
 // split-token product, chosen by shape in ops/window_attn.py::mlp_bwd_plan,
 // ::attn_bwd_plan and ::wgrad_plan:
 //
 // 1. The tensor-core kernels (namespace tc; bf16). K8 at C = 96, 192, 384
-//    with hidden = 4C and K9 at C = 96, 192, 384 with 8x8 windows and head
-//    dim 24 (HTSAT's stages 1-3: every shape the train step gives them); the
-//    product where both output dimensions are multiples of 96 (every weight
-//    gradient of K6, K8 and K9 at HTSAT's widths).
+//    with hidden = 4C, K9 at C = 96, 192, 384 and K6 at C = 768, both with
+//    8x8 windows and head dim 24 (HTSAT's stages 1-3 and 4: every shape the
+//    train step gives them); the product where both output dimensions are
+//    multiples of 96 (every weight gradient of K6, K8 and K9 at HTSAT's
+//    widths).
 //    - K8 (mlp_bwd_kernel): the forward's layout (window_attn.cu, namespace
 //      tc): a warp owns 16 rows and one column group of 96 channels, a block
 //      is 8 warps = (M / 16) x (C / 96) over M = 128, 64 or 32 consecutive
@@ -95,6 +96,22 @@
 //      places. C / 24 lanes take a row, 3 chunks of 8 channels a lane. It also
 //      sums go and dqkv over its rows: the partials of the proj and qkv bias
 //      gradients come with dLN1's, and no column-sum launch is left.
+//    - K6 (attn_bwd_kernel<false>, attn_dx_kernel<false>): K9's kernels
+//      with xn = x and go = g. At C = 768 a window's eight column groups go
+//      over four blocks of two (256 blocks of 8 warps for 64 windows). K9's
+//      layout, a row tile each for LN1(x) and go, would need 305,664 bytes
+//      of shared memory there; K6 keeps one row tile: g's rows arrive first,
+//      do = g Wproj^T for the block's 192 columns goes to a [64][200] tile,
+//      then x's rows arrive over g's (231,936 of the 232,448 bytes a block
+//      may take; attn_smem). Kernel B takes 16 rows a block (one per warp
+//      row, 8 column groups); its dx needs no LN backward and goes out as
+//      bf16 through a tile over the dqkv rows (222,976 bytes; dx_smem); it
+//      sums g (read at the tokens' places) and dqkv over its rows for the
+//      bias gradients. Stage 4 at B = 64 (NVIDIA H100 80GB HBM3, 700.00 W;
+//      examples/probe_window_kernels.py --train): kernel A 238 us, kernel B
+//      287 us (each block stages all of Wqkv^T for its 16 rows), the two
+//      weight products 165 us, the reductions 28 us: 704 us in all; with
+//      --fma, every part on the FMA kernels, 13.0 ms.
 //    - The product (tc::wgrad_kernel): tokens are the k direction. 96 x 96
 //      output tiles (they divide every width: nothing is padded), 4 warps of
 //      48 x 48, both operands' tiles [32 tokens][96 columns] through three
@@ -102,9 +119,9 @@
 //      end), and both fragments by ldmatrix.trans: A's tile is [k][m], so
 //      its transpose is the row-major A operand. At HTSAT's shapes it runs
 //      at the rate the scratch can be read at.
-// 2. The FMA kernels (attn_bwd_a, attn_bwd_b, mlp_bwd_a, wgrad_kernel; K6
-//    at every shape, fp32, whose fixtures TF32 would break, bf16 at other
-//    widths, and the column sums, which are bound by bytes): fp32
+// 2. The FMA kernels (attn_bwd_a, attn_bwd_b, mlp_bwd_a, wgrad_kernel;
+//    fp32, whose fixtures TF32 would break, bf16 at other widths, and the
+//    column sums of the FMA route, which are bound by bytes): fp32
 //    channel-major shared tiles, 64 x 64 output tiles, CUDA-core FMAs through
 //    block_gemm, one head at a time; per-head buffers stay under the
 //    shared-memory limit up to C=768 in bf16 and C=384 in fp32.
@@ -1046,19 +1063,24 @@ __host__ __device__ inline int attn_groups(int C) {
 }
 __host__ __device__ inline int attn_rows(int C) { return (kThreads / 32) / attn_groups(C) * 16; }
 
-// Byte offsets of the per-window kernel's shared memory: the bf16 row tiles
-// [M][C + 8] of LN1(x) (at 0) and of go, over which do = go Wproj^T lies for
-// the block's columns after the first product; the head tiles of each
+// Byte offsets of the per-window kernel's shared memory. K9: the bf16 row
+// tiles [M][C + 8] of LN1(x) (at 0) and of go, over which do = go Wproj^T
+// lies for the block's columns after the first product. K6: one row tile
+// [M][C + 8], g's rows for the first product and x's after it, and the do
+// tile [M][96 gb + 8] of the block's columns. Then the head tiles of each
 // (window, group), over which the first product stages its slabs; the qkv
 // slab buffers [3][32][odd_ld(72 gb)]; a [16][kKvLd] staging tile a warp.
+// K6 at C = 768 (M = 64, gb = 2): 99,328 + 25,600 + 2 x 33,792 (heads) +
+// 29,184 (slabs) + 10,240 (staging) = 231,936 of the 232,448 bytes a block
+// may take; a second row tile (K9's layout) would need 305,664.
 struct AttnSmem {
   int go, heads, slab, stage, total;
 };
-__host__ __device__ inline AttnSmem attn_smem(int C) {
+__host__ __device__ inline AttnSmem attn_smem(int C, bool ln) {
   const int M = attn_rows(C), gb = attn_groups(C), tile = M * (C + 8) * 2;
   AttnSmem s;
   s.go = tile;
-  s.heads = 2 * tile;
+  s.heads = s.go + (ln ? tile : M * (kGroup * gb + 8) * 2);
   s.slab = s.heads + (M / kN) * gb * kHeadTiles;
   s.stage = s.slab + kSlabStages * kSlabRows * odd_ld(kQkv * gb) * 2;
   s.total = s.stage + (kThreads / 32) * 16 * kKvLd * 2;
@@ -1088,20 +1110,26 @@ __device__ __forceinline__ void put_16x24(const float (&v)[kD / 8][4], bf16* sta
   __syncwarp();
 }
 
-// Kernel A, per window (two at C = 96) and gb column groups: LN1(x) and go =
-// dy m1 for the block's rows (the block's columns of both to scratch), do =
-// go Wproj^T, then per head of the warp's group, for the warp's 16 query rows:
-// qkv recomputed, scores and softmax on the fragments, o = rnd(p) v, dp = do
-// v^T, ds = p (dp - rowsum(dp p)) (fp32 to dbias_part), dq = rnd(ds) k; after
-// one barrier, for the warp's 16 key rows, dk = rnd(ds)^T qs and dv = rnd(p)^T
-// do from the head tiles of all 64 rows. Scratch rows are window-major.
+// Kernel A, per window (two at C = 96) and gb column groups. K9: LN1(x) and
+// go = dy m1 for the block's rows (the block's columns of both to scratch),
+// do = go Wproj^T. K6 (xn = x, go = g): g's rows, the block's columns to
+// scratch, do = g Wproj^T for the block's columns into the do tile, then x's
+// rows over g's (the block's columns to scratch). Then per head of the warp's
+// group, for the warp's 16 query rows: qkv recomputed, scores and softmax on
+// the fragments, o = rnd(p) v, dp = do v^T, ds = p (dp - rowsum(dp p)) (fp32
+// to dbias_part), dq = rnd(ds) k; after one barrier, for the warp's 16 key
+// rows, dk = rnd(ds)^T qs and dv = rnd(p)^T do from the head tiles of all 64
+// rows. Scratch rows are window-major.
+template <bool kLn>
 __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.C, C3 = 3 * C, lda = C + 8, n8 = C / 8;
   const int gb = attn_groups(C), M = attn_rows(C), cg0 = blockIdx.y * gb;
-  const AttnSmem lay = attn_smem(C);
+  const AttnSmem lay = attn_smem(C, kLn);
   bf16* xn = reinterpret_cast<bf16*>(smem);
-  bf16* gt = reinterpret_cast<bf16*>(smem + lay.go);
+  bf16* gt = reinterpret_cast<bf16*>(smem + lay.go);  // K9: go, then do; K6: do
+  // do of the block's columns: row length and the column of head 0 of group cg0
+  const int ldo = kLn ? lda : kGroup * gb + 8, do0 = kLn ? cg0 * kGroup : 0;
   unsigned char* heads = smem + lay.heads;
   bf16* slab = reinterpret_cast<bf16*>(smem + lay.slab);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
@@ -1112,24 +1140,45 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
     return tok_offset(gw / nWin, gw % nWin, r, p.H, p.W, C, 8, p.shift);
   };
 
-  // 1. The rows of x and dy, 16 bytes a thread with every copy in flight
-  // (rows of windows past the last: zeros).
-  for (int i = threadIdx.x; i < M * n8; i += kThreads) {
-    const int r = i / n8, c = (i - r * n8) * 8;
-    const int gw = win0 + r / kN;
-    const bool valid = gw < total;
-    const int64_t off = valid ? tok(gw, r % kN) + c : 0;
-    cp_async16_zfill(xn + r * lda + c, p.x + off, valid);
-    cp_async16_zfill(gt + r * lda + c, p.g + off, valid);
+  // The rows of `src` (x, dy or g) into the row tile `dst`, 16 bytes a thread
+  // with every copy in flight (rows of windows past the last: zeros).
+  auto load_rows = [&](bf16* dst, const bf16* src) {
+    for (int i = threadIdx.x; i < M * n8; i += kThreads) {
+      const int r = i / n8, c = (i - r * n8) * 8;
+      const int gw = win0 + r / kN;
+      const bool valid = gw < total;
+      cp_async16_zfill(dst + r * lda + c, src + (valid ? tok(gw, r % kN) + c : 0), valid);
+    }
+  };
+  // The block's columns of row tile `src` to the window-major scratch `dst`.
+  auto put_cols = [&](bf16* dst, const bf16* src) {
+    constexpr int kC8 = kGroup / 8;
+    for (int i = threadIdx.x; i < M * kC8 * gb; i += kThreads) {
+      const int r = i / (kC8 * gb), c = (cg0 * kC8 + i - r * (kC8 * gb)) * 8;
+      const int gw = win0 + r / kN;
+      if (gw < total)
+        *reinterpret_cast<uint4*>(dst + (static_cast<int64_t>(gw) * kN + r % kN) * C + c) =
+            *reinterpret_cast<const uint4*>(src + r * lda + c);
+    }
+  };
+
+  // 1. K9: the rows of x and dy. K6: the rows of g.
+  if (kLn) {
+    load_rows(xn, p.x);
+    load_rows(gt, p.g);
+  } else {
+    load_rows(xn, p.g);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  // 2. LN1(x) and go = rnd(dy rnd(m1)) in place, L = C / 24 lanes a row
+  // 2. K9: LN1(x) and go = rnd(dy rnd(m1)) in place, L = C / 24 lanes a row
   // holding its channels in registers (32 / L rows of a warp at once); the
-  // block's columns of both to scratch.
-  {
+  // block's columns of both to scratch. K6: the block's columns of go = g.
+  if (!kLn) {
+    put_cols(p.go_s, xn);
+  } else {
     const int L = n8 / kRowChunks, sl = lane % L;
     const int row_groups = (kThreads / 32) * (32 / L), rg = warp * (32 / L) + lane / L;
     const int c8_lo = cg0 * (kGroup / 8), c8_hi = (cg0 + gb) * (kGroup / 8);
@@ -1180,11 +1229,12 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
   }
 
   // 3. do = go Wproj^T for the warp's rows and group (Wproj^T staged over the
-  // head tiles), rounded into go's tile once every warp is done reading it.
+  // head tiles), rounded into go's tile (K9) or the do tile (K6) once every
+  // warp is done reading go.
   const int row = mt * 16 + (lane & 15);
   {
     float acc[kGroup / 8][4] = {};
-    staged_gemm<kGroup / 8>(acc, smem_addr(gt + row * lda + (lane >> 4) * 8), C,
+    staged_gemm<kGroup / 8>(acc, smem_addr((kLn ? gt : xn) + row * lda + (lane >> 4) * 8), C,
                             reinterpret_cast<bf16*>(heads), odd_ld(kGroup * gb),
                             (kGroup / 8) * gb, wn * kGroup, C, [&](int k, int c8) {
                               return p.proj_wt + static_cast<int64_t>(k) * C + cg0 * kGroup +
@@ -1192,10 +1242,19 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
                             });
 #pragma unroll
     for (int nt = 0; nt < kGroup / 8; ++nt) {
-      bf16* dst = gt + (mt * 16 + g) * lda + (cg0 + wn) * kGroup + nt * 8 + 2 * t;
+      bf16* dst = gt + (mt * 16 + g) * ldo + do0 + wn * kGroup + nt * 8 + 2 * t;
       *reinterpret_cast<uint32_t*>(dst) = pack2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<uint32_t*>(dst + 8 * lda) = pack2(acc[nt][2], acc[nt][3]);
+      *reinterpret_cast<uint32_t*>(dst + 8 * ldo) = pack2(acc[nt][2], acc[nt][3]);
     }
+  }
+  // K6: x's rows over g's (every warp is done reading g), the block's
+  // columns of xn = x to scratch.
+  if (!kLn) {
+    load_rows(xn, p.x);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    put_cols(p.xn_s, xn);
   }
 
   // 4. One head of the warp's group at a time.
@@ -1216,6 +1275,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
       smem_addr(vs + (lane & 7) * kKvLd + ((lane >> 3) < 2 ? (lane >> 3) : 2) * 8);
   for (int it = 0; it < kHeads; ++it) {
     const int head = (cg0 + wn) * kHeads + it;
+    const int dcol = do0 + (wn * kHeads + it) * kD;  // the head's do columns in its tile
     // q, k, v of this head for the warp's 16 rows
     float acc[kQkv / 8][4] = {};
     staged_gemm<kQkv / 8>(acc, xn_addr, C, slab, odd_ld(kQkv * gb), (kQkv / 8) * gb, wn * kQkv,
@@ -1326,8 +1386,8 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
     float dp[kN / 8][4] = {};
     {
       uint32_t da[4], db[2];
-      ldsm_x4(da, smem_addr(gt + row * lda + head * kD + (lane >> 4) * 8));
-      ldsm_x2(db, smem_addr(gt + row * lda + head * kD + 16));
+      ldsm_x4(da, smem_addr(gt + row * ldo + dcol + (lane >> 4) * 8));
+      ldsm_x2(db, smem_addr(gt + row * ldo + dcol + 16));
 #pragma unroll
       for (int nt = 0; nt < kN / 8; ++nt) {
         uint32_t vb[4];
@@ -1409,7 +1469,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
         mma_k16(dk[1], a, b4[2], b4[3]);
         mma_k16(dk[2], a, b2[0], b2[1]);
         ldsm_x4_t(a, smem_addr(pt + ar * kPLd + ac));
-        const bf16* drow = gt + (wl * kN + kk * 16 + (lane & 15)) * lda + head * kD;
+        const bf16* drow = gt + (wl * kN + kk * 16 + (lane & 15)) * ldo + dcol;
         ldsm_x4_t(b4, smem_addr(drow + (lane >> 4) * 8));
         ldsm_x2_t(b2, smem_addr(drow + 16));
         mma_k16(dv[0], a, b4[0], b4[1]);
@@ -1424,32 +1484,37 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
 }
 
 // Kernel B's shared memory: the bf16 dqkv row tile [M][3C + 8] (at 0; the
-// fp32 dxn tile [M][C + 8] lies over it after the product), the x and dy row
-// tiles [M][C + 8], the slab buffers [3][32][odd_ld(C)], over which the
-// partial sums [warps][3][C] lie at the end.
+// fp32 dxn tile [M][C + 8] (K9) or the bf16 dx tile (K6) lies over it after
+// the product), K9's x and dy row tiles [M][C + 8], the slab buffers
+// [3][32][odd_ld(C)], over which K9's partial sums [warps][3][C] lie at the
+// end. K6 at C = 768 (M = 16): 73,984 + 148,992 = 222,976 bytes; K9's two
+// row tiles would add 49,664.
 struct DxSmem {
   int x, dy, slab, total;
 };
-__host__ __device__ inline DxSmem dx_smem(int M, int C) {
+__host__ __device__ inline DxSmem dx_smem(int M, int C, bool ln) {
   DxSmem s;
   s.x = M * (3 * C + 8) * 2;
-  s.dy = s.x + M * (C + 8) * 2;
-  s.slab = s.dy + M * (C + 8) * 2;
+  s.dy = s.x + (ln ? M * (C + 8) * 2 : 0);
+  s.slab = s.dy + (ln ? M * (C + 8) * 2 : 0);
   s.total = s.slab + kSlabStages * kSlabRows * odd_ld(C) * 2;
   return s;
 }
 
 // Kernel B, per M = 128 / (C / 96) window-major scratch rows (a warp: 16 rows
-// x 96 columns): dxn = rnd(dqkv Wqkv^T) (Wqkv^T staged), then the LN1
+// x 96 columns): dxn = rnd(dqkv Wqkv^T) (Wqkv^T staged). K9: then the LN1
 // backward with the row statistics recomputed from x, dx = rnd(dy + rnd(du))
 // at the tokens' places, and the block's partials [6C]: sum dxn xhat, sum
 // dxn (dLN1), sum go (the proj bias gradient, go = rnd(dy rnd(m1))), and the
-// column sums of dqkv (the qkv bias gradient).
+// column sums of dqkv (the qkv bias gradient). K6: dx = dxn at the tokens'
+// places, and the partials [4C]: sum go (go = g, read at the tokens' places),
+// then the column sums of dqkv.
+template <bool kLn>
 __global__ void __launch_bounds__(kThreads, 1) attn_dx_kernel(AttnBwdTc p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = p.C, C3 = 3 * C, groups = C / kGroup, M = kRows / groups;
   const int lda = C + 8, ldq = C3 + 8, n8 = C / 8;
-  const DxSmem lay = dx_smem(M, C);
+  const DxSmem lay = dx_smem(M, C, kLn);
   bf16* dq = reinterpret_cast<bf16*>(smem);
   bf16* xt = reinterpret_cast<bf16*>(smem + lay.x);
   bf16* yt = reinterpret_cast<bf16*>(smem + lay.dy);
@@ -1469,29 +1534,61 @@ __global__ void __launch_bounds__(kThreads, 1) attn_dx_kernel(AttnBwdTc p) {
     const bool valid = t0 + r < p.n_tok;
     cp_async16_zfill(dq + r * ldq + c, p.dqkv_s + (valid ? (t0 + r) * C3 + c : 0), valid);
   }
-  for (int i = threadIdx.x; i < M * n8; i += kThreads) {
-    const int r = i / n8, c = (i - r * n8) * 8;
-    const bool valid = t0 + r < p.n_tok;
-    const int64_t off = valid ? tok(t0 + r) + c : 0;
-    cp_async16_zfill(xt + r * lda + c, p.x + off, valid);
-    cp_async16_zfill(yt + r * lda + c, p.g + off, valid);
+  if (kLn) {
+    for (int i = threadIdx.x; i < M * n8; i += kThreads) {
+      const int r = i / n8, c = (i - r * n8) * 8;
+      const bool valid = t0 + r < p.n_tok;
+      const int64_t off = valid ? tok(t0 + r) + c : 0;
+      cp_async16_zfill(xt + r * lda + c, p.x + off, valid);
+      cp_async16_zfill(yt + r * lda + c, p.g + off, valid);
+    }
   }
   cp_async_commit();
+  float* part = p.ln_part + static_cast<int64_t>(blockIdx.x) * (kLn ? 6 : 4) * C;
+  if (!kLn) {  // K6: go = g's column sums over the block's rows, while the copies fly
+    for (int c = threadIdx.x; c < C; c += kThreads) {
+      float sum = 0.f;
+#pragma unroll 16
+      for (int r = 0; r < M; ++r)
+        sum += t0 + r < p.n_tok ? __bfloat162float(p.g[tok(t0 + r) + c]) : 0.f;
+      part[c] = sum;
+    }
+  }
   cp_async_wait<0>();
   __syncthreads();
-  float* part = p.ln_part + static_cast<int64_t>(blockIdx.x) * 6 * C;
   for (int c = threadIdx.x; c < C3; c += kThreads) {
     float sum = 0.f;
     for (int r = 0; r < M; ++r) sum += __bfloat162float(dq[r * ldq + c]);
-    part[3 * C + c] = sum;
+    part[(kLn ? 3 : 1) * C + c] = sum;
   }
 
-  // 2. dxn = dqkv Wqkv^T, K = 3C; rounded, in fp32 over the dqkv tile.
+  // 2. dxn = dqkv Wqkv^T, K = 3C (a slab of 32 x C over 256 threads: 6
+  // copies a thread at C <= 384, 12 at 768).
   float acc[kGroup / 8][4] = {};
-  staged_gemm<kGroup / 8, kCopies>(
+  staged_gemm<kGroup / 8, kLn ? kCopies : 2 * kCopies>(
       acc, smem_addr(dq + (mt * 16 + (lane & 15)) * ldq + (lane >> 4) * 8), C3, slab, odd_ld(C),
       n8, wn * kGroup, C,
       [&](int k, int c8) { return p.qkv_wt + static_cast<int64_t>(k) * C + c8 * 8; });
+  if (!kLn) {
+    // K6: dx = rnd(dxn) into a bf16 tile over the dqkv tile, then 16 bytes a
+    // thread to the tokens' places.
+    bf16* ot = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+    for (int nt = 0; nt < kGroup / 8; ++nt) {
+      bf16* d = ot + (mt * 16 + g) * lda + wn * kGroup + nt * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(d) = pack2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<uint32_t*>(d + 8 * lda) = pack2(acc[nt][2], acc[nt][3]);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < M * n8; i += kThreads) {
+      const int r = i / n8, c = (i - r * n8) * 8;
+      if (t0 + r < p.n_tok)
+        *reinterpret_cast<uint4*>(p.dx + tok(t0 + r) + c) =
+            *reinterpret_cast<const uint4*>(ot + r * lda + c);
+    }
+    return;
+  }
+  // K9: rounded, in fp32 over the dqkv tile.
   float* dt = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int nt = 0; nt < kGroup / 8; ++nt) {
@@ -1612,6 +1709,15 @@ int launch(K kernel, const P& p, int n_blocks, int smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// A tensor-core kernel of tc::kThreads threads a block over `grid`.
+template <typename K, typename P>
+int launch_grid(K kernel, const P& p, dim3 grid, int smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, tc::kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // parts: 1 the per-window kernel, 2 the dx kernel, 3 both.
 template <typename T, bool kLn>
 int attn_bwd_launch(const AttnBwd& p, int B, int parts, cudaStream_t s) {
@@ -1667,15 +1773,17 @@ extern "C" int swin_attn_bwd(int dtype, int ln, int parts, const void* x, const 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K9 on the tensor cores (kernel A, then kernel B; parts: 1 the first alone,
-// 2 the second alone, 3 both): bf16, 8x8 windows, C = 96 * groups with
-// groups 1, 2 or 4 and heads = C / 24. proj_wt [C, C] and qkv_wt [3C, C] are
-// the transposed weights; x, g (dy) and every row pointer 16-byte aligned.
-// Scratch rows B * nWin * 64, window-major: xn_s, go_s, o_s [.., C], dqkv_s
-// [.., 3C] bf16; dbias_part [B, nWin, heads, 64, 64] and ln_part
-// [ceil(n_tok / (128 / groups)), 6, C] fp32 (dLN1's two rows, then the proj
-// and qkv bias gradients' partials).
-extern "C" int swin_attn_bwd_tc(int parts, const void* x, const void* g, const void* m1,
+// K9 (ln = 1: g is dy, with m1 and LN1) or K6 (ln = 0: g is the output
+// cotangent) on the tensor cores (kernel A, then kernel B; parts: 1 the first
+// alone, 2 the second alone, 3 both): bf16, 8x8 windows, C = 96 * groups with
+// groups 1, 2 or 4 (K9) or 8 (K6) and heads = C / 24. proj_wt [C, C] and
+// qkv_wt [3C, C] are the transposed weights; x, g and every row pointer
+// 16-byte aligned. Scratch rows B * nWin * 64, window-major: xn_s, go_s, o_s
+// [.., C], dqkv_s [.., 3C] bf16; dbias_part [B, nWin, heads, 64, 64] and
+// ln_part [ceil(n_tok / (128 / groups)), 6 (K9) or 4 (K6), C] fp32 (K9:
+// dLN1's two rows, then the proj and qkv bias gradients' partials; K6: the
+// proj, then the qkv bias gradients' partials).
+extern "C" int swin_attn_bwd_tc(int ln, int parts, const void* x, const void* g, const void* m1,
                                 const void* ln1_s, const void* ln1_b, const void* qkv_w,
                                 const void* qkv_b, const void* proj_wt, const void* qkv_wt,
                                 const void* bias, void* dx, void* xn_s, void* go_s, void* o_s,
@@ -1684,9 +1792,9 @@ extern "C" int swin_attn_bwd_tc(int parts, const void* x, const void* g, const v
                                 void* stream) {
   using tc::bf16;
   const int groups = C / tc::kGroup;
-  if (parts < 1 || parts > 3 || C % tc::kGroup || (groups != 1 && groups != 2 && groups != 4) ||
-      heads * tc::kD != C || B <= 0 || H <= 0 || W <= 0 || H % 8 || W % 8 || shift < 0 ||
-      m1 == nullptr)
+  const bool width = ln ? (groups == 1 || groups == 2 || groups == 4) : groups == 8;
+  if (parts < 1 || parts > 3 || C % tc::kGroup || !width || heads * tc::kD != C || B <= 0 ||
+      H <= 0 || W <= 0 || H % 8 || W % 8 || shift < 0 || (ln && m1 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto in = [](const void* q) { return static_cast<const bf16*>(q); };
   auto out = [](void* q) { return static_cast<bf16*>(q); };
@@ -1697,31 +1805,25 @@ extern "C" int swin_attn_bwd_tc(int parts, const void* x, const void* g, const v
                   static_cast<int64_t>(B) * H * W, B, H, W, C, heads, shift, eps, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (parts & 1) {
-    const int smem = tc::attn_smem(C).total, gb = tc::attn_groups(C);
+    const int smem = tc::attn_smem(C, ln).total, gb = tc::attn_groups(C);
     const int wpb = tc::attn_rows(C) / tc::kN;
     // the first product stages Wproj^T over the head tiles
     if (smem > smem_limit() ||
         kSlabStages * kSlabRows * odd_ld(tc::kGroup * gb) * 2 > wpb * gb * tc::kHeadTiles)
       return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(tc::attn_bwd_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
     const int total = B * (H / 8) * (W / 8);
-    dim3 grid((total + wpb - 1) / wpb, groups / gb);
-    tc::attn_bwd_kernel<<<grid, tc::kThreads, smem, s>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((total + wpb - 1) / wpb, groups / gb);
+    const int rc = ln ? launch_grid(tc::attn_bwd_kernel<true>, p, grid, smem, s)
+                      : launch_grid(tc::attn_bwd_kernel<false>, p, grid, smem, s);
+    if (rc) return rc;
   }
   if (parts & 2) {
-    const int rows = tc::kRows / groups, smem = tc::dx_smem(rows, C).total;
+    const int rows = tc::kRows / groups, smem = tc::dx_smem(rows, C, ln).total;
     if (smem > smem_limit()) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(tc::attn_dx_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const unsigned n_blocks = static_cast<unsigned>((p.n_tok + rows - 1) / rows);
-    tc::attn_dx_kernel<<<n_blocks, tc::kThreads, smem, s>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>((p.n_tok + rows - 1) / rows));
+    const int rc = ln ? launch_grid(tc::attn_dx_kernel<true>, p, grid, smem, s)
+                      : launch_grid(tc::attn_dx_kernel<false>, p, grid, smem, s);
+    if (rc) return rc;
   }
   return 0;
 }

@@ -35,13 +35,13 @@ what a kernel refuses, never falling back):
 K3, K5 and K7 are ``csrc/window_attn.cu``, in two instantiations chosen by
 shape (``window_kernel_plan``): tensor-core kernels for bf16 at HTSAT's
 shapes, the FMA kernel for fp32 and every other shape. K6, K8 and K9 are
-``csrc/swin_train.cu``: K8's per-token kernel (``mlp_bwd_plan``), K9's two
-per-token kernels (``attn_bwd_plan``) and the split-token weight-gradient
-product that K6, K8 and K9 share (``wgrad_plan``) have a tensor-core
-instantiation for bf16 at HTSAT's widths beside the FMA one. Each kernel's
-wrapper counts its launches in ``.launches``, and K3/K5/K7/K8/K9's those that
-took the tensor-core kernels in ``.tc_launches`` (K8: the per-token kernel and
-both weight products; K9: both per-token kernels A and B);
+``csrc/swin_train.cu``: K8's per-token kernel (``mlp_bwd_plan``), the two
+per-token kernels of K6 and K9 (``attn_bwd_plan``) and the split-token
+weight-gradient product that K6, K8 and K9 share (``wgrad_plan``) have a
+tensor-core instantiation for bf16 at HTSAT's widths beside the FMA one. Each
+kernel's wrapper counts its launches in ``.launches``, and K3/K5-K9's those
+that took the tensor-core kernels in ``.tc_launches`` (K8: the per-token kernel
+and both weight products; K6, K9: both per-token kernels A and B);
 ``_wgrad.tc_launches`` counts the weight-gradient products on the tensor
 cores.
 
@@ -363,7 +363,7 @@ def _train_lib():
         lib.swin_train_smem.argtypes = [i] * 6
         lib.swin_train_smem_limit.argtypes = []
         lib.swin_attn_bwd.argtypes = [i, i, i] + [vp] * 17 + [i] * 8 + [f, f, vp]
-        lib.swin_attn_bwd_tc.argtypes = [i] + [vp] * 17 + [i] * 6 + [f, f, vp]
+        lib.swin_attn_bwd_tc.argtypes = [i, i] + [vp] * 17 + [i] * 6 + [f, f, vp]
         lib.swin_mlp_bwd.argtypes = ([i] + [vp] * 15 + [ctypes.c_longlong] + [i] * 4
                                      + [f, vp])
         lib.swin_mlp_bwd_tc.argtypes = ([vp] * 16 + [ctypes.c_longlong] + [i] * 4 + [f, vp])
@@ -588,15 +588,15 @@ def attn_bwd_plan(dtype, N: int, C: int, d: int, ln: bool):
     head dim ``d``.
 
     - ``("tc", rows)``: the tensor-core kernels, the per-window kernel A and
-      the dx kernel B. bf16, N = 64 (8x8 windows), d = 24, C = 96, 192 or 384
-      and ``ln`` (K9 at HTSAT's stages 1-3, every shape the train step gives
-      it); ``rows`` tokens a block of kernel B (128 over the C / 96 column
-      groups: 8 warps).
+      the dx kernel B. bf16, N = 64 (8x8 windows), d = 24, and C = 96, 192 or
+      384 with ``ln`` (K9 at HTSAT's stages 1-3) or C = 768 without (K6 at
+      stage 4): every shape the train step gives them. ``rows`` tokens a block
+      of kernel B (128 over the C / 96 column groups: 8 warps).
     - ``("fma",)``: the FMA kernels ``attn_bwd_a`` and ``attn_bwd_b``. fp32
-      always (TF32 would break the fp32 fixtures), K6 always, and bf16 at any
-      other shape they take: N a multiple of 8 up to 64, d a multiple of 8 up
-      to 64 (and enough shared memory, which only the card can say: the
-      wrapper raises there).
+      always (TF32 would break the fp32 fixtures), and bf16 at any other shape
+      they take: N a multiple of 8 up to 64, d a multiple of 8 up to 64 (and
+      enough shared memory, which only the card can say: the wrapper raises
+      there).
 
     Raises ``TypeError`` or ``ValueError`` for what neither takes. A rule on
     shapes alone: a CUDA tensor launches the planned kernels or raises."""
@@ -604,8 +604,8 @@ def attn_bwd_plan(dtype, N: int, C: int, d: int, ln: bool):
     if d <= 0 or d % 8:
         raise ValueError(f"attention backward: head dim {d} is not a multiple of 8")
     groups = C // _TC_GROUP
-    if (ln and dtype == torch.bfloat16 and N == 64 and d == _TC_HEAD_DIM
-            and C % _TC_GROUP == 0 and groups in (1, 2, 4)):
+    if (dtype == torch.bfloat16 and N == 64 and d == _TC_HEAD_DIM and C % _TC_GROUP == 0
+            and groups in ((1, 2, 4) if ln else (8,))):
         return ("tc", _TC_BWD_ROWS // groups)
     return ("fma",)
 
@@ -645,9 +645,10 @@ def _attn_bwd_tokens(name, lib, plan, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, 
     """K6's or K9's per-token kernels, those ``plan`` (``attn_bwd_plan``)
     names: (dx, xn_s, go_s, o_s [n_tok, C], dqkv_s [n_tok, 3C] in x's dtype,
     rows window-major; dbias_part [B, nWin * h * N * N], ln_part [blocks, 2C]
-    fp32: the partials of dLN1). The tensor-core dx kernel also sums go and
-    dqkv over its rows: its ln_part is [blocks, 6C], the partials of dLN1, of
-    the proj bias gradient and of the qkv bias gradient. ``parts`` 1 launches
+    fp32: the partials of dLN1, K9's only). The tensor-core dx kernel also sums
+    go and dqkv over its rows: its ln_part is [blocks, 6C] for K9, the
+    partials of dLN1, of the proj bias gradient and of the qkv bias gradient,
+    and [blocks, 4C] for K6, without dLN1's. ``parts`` 1 launches
     the per-window kernel alone, 2 the dx kernel alone, 3 both; ``scratch``,
     the tuple of an earlier call, is written over instead of new buffers (to
     time one kernel alone)."""
@@ -668,10 +669,11 @@ def _attn_bwd_tokens(name, lib, plan, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, 
                            [r for r in range(N, 0, -8) if N % r == 0])
     if scratch is None:
         new = lambda *s, dtype=dt: torch.empty(*s, dtype=dtype, device=x.device)
+        sums = (6 if ln is not None else 4) if plan[0] == "tc" else 2
         scratch = (torch.empty_like(x), new(n_tok, C), new(n_tok, C), new(n_tok, C),
                    new(n_tok, 3 * C), new(B, nH * nW * h * N * N, dtype=torch.float32),
-                   new(math.ceil(n_tok / rows) if ln is not None else 1,
-                       (6 if plan[0] == "tc" else 2) * C, dtype=torch.float32))
+                   new(math.ceil(n_tok / rows) if ln is not None or plan[0] == "tc" else 1,
+                       sums * C, dtype=torch.float32))
     dx, xn_s, go_s, o_s, dqkv_s, dbias_part, ln_part = scratch
     ptr = lambda t: None if t is None else t.data_ptr()
     ln1_s, ln1_b = ln if ln is not None else (None, None)
@@ -681,8 +683,8 @@ def _attn_bwd_tokens(name, lib, plan, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, 
         # dxn = dqkv Wqkv^T, rows along the output columns: copies made once a call
         proj_wt, qkv_wt = proj_w.t().contiguous(), qkv_w.t().contiguous()
         rc = lib.swin_attn_bwd_tc(
-            parts, x.data_ptr(), g.data_ptr(), m1.data_ptr(), ln1_s.data_ptr(),
-            ln1_b.data_ptr(), qkv_w.data_ptr(), qkv_b.data_ptr(), proj_wt.data_ptr(),
+            int(ln is not None), parts, x.data_ptr(), g.data_ptr(), ptr(m1), ptr(ln1_s),
+            ptr(ln1_b), qkv_w.data_ptr(), qkv_b.data_ptr(), proj_wt.data_ptr(),
             qkv_wt.data_ptr(), *tail, dqkv_s.data_ptr(), dbias_part.data_ptr(),
             ln_part.data_ptr(), B, H, W, C, h, shift, float(eps), _scale(d, dt), _stream(x))
     else:
@@ -724,9 +726,10 @@ def _attn_bwd_launch(name, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, window, num
     n_tok = B * H * W
     dx, xn_s, go_s, o_s, dqkv_s, dbias_part, ln_part = _attn_bwd_tokens(
         name, lib, plan, x, g, m1, ln, qkv_w, qkv_b, proj_w, bias, window, h, shift, eps)
-    sums = _reduce(lib, name, ln_part) if ln is not None else None
-    if plan[0] == "tc":
-        dqkv_b, dproj_b = sums[3 * C:], sums[2 * C:3 * C]
+    sums = _reduce(lib, name, ln_part) if ln is not None or plan[0] == "tc" else None
+    if plan[0] == "tc":   # the go sums, then the dqkv sums, after K9's dLN1 rows
+        o = 2 * C if ln is not None else 0
+        dproj_b, dqkv_b = sums[o:o + C], sums[o + C:]
     else:
         dqkv_b = _wgrad(lib, name, None, 0, dqkv_s, 3 * C, n_tok, 1, 3 * C)[0].reshape(-1)
         dproj_b = _wgrad(lib, name, None, 0, go_s, C, n_tok, 1, C)[0].reshape(-1)
@@ -812,15 +815,17 @@ def _mlp_bwd_launch(name, y, g, m2, ln2_s, ln2_b, fc1_w, fc1_b, fc2_w, eps):
 
 def window_attention_bwd(x, g, qkv_w, qkv_b, proj_w, proj_b, bias, window: int,
                          num_heads: int, shift: int):
-    """K6: ``window_attention_bwd_plain`` for CPU tensors, the CUDA kernel for
-    CUDA tensors (same arguments and result)."""
+    """K6: ``window_attention_bwd_plain`` for CPU tensors, the CUDA kernels
+    that ``attn_bwd_plan`` and ``wgrad_plan`` name for CUDA tensors (same
+    arguments and result)."""
     if _route(x, "window_attention_bwd"):
         return window_attention_bwd_plain(x, g, qkv_w, qkv_b, proj_w, proj_b, bias, window,
                                           num_heads, shift)
-    (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias), _ = _attn_bwd_launch(
+    (dx, dqkv_w, dqkv_b, dproj_w, dproj_b, dbias), tc = _attn_bwd_launch(
         "window_attention_bwd", x, g.contiguous(), None, None, qkv_w, qkv_b, proj_w, bias,
         window, num_heads, shift, 0.0)
     window_attention_bwd.launches += 1
+    window_attention_bwd.tc_launches += tc
     return (dx, dqkv_w.to(qkv_w.dtype), dqkv_b.to(qkv_b.dtype), dproj_w.to(proj_w.dtype),
             dproj_b.to(proj_b.dtype), dbias)
 
@@ -978,6 +983,6 @@ def fused_swin_block_train(x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, ln2_s,
 for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train,
             window_attention_bwd, mlp_bwd, attn_ln1_bwd):
     _fn.launches = 0
-for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train, mlp_bwd,
-            attn_ln1_bwd, _wgrad):
+for _fn in (fused_window_attention, fused_swin_block, fused_swin_block_train,
+            window_attention_bwd, mlp_bwd, attn_ln1_bwd, _wgrad):
     _fn.tc_launches = 0
