@@ -1140,14 +1140,17 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
     return tok_offset(gw / nWin, gw % nWin, r, p.H, p.W, C, 8, p.shift);
   };
 
-  // The rows of `src` (x, dy or g) into the row tile `dst`, 16 bytes a thread
-  // with every copy in flight (rows of windows past the last: zeros).
-  auto load_rows = [&](bf16* dst, const bf16* src) {
+  // The rows of `src` (x, dy or g) into the row tile `dst`, and those of
+  // `src2` into `dst2` unless it is null, 16 bytes a thread with every copy in
+  // flight (rows of windows past the last: zeros).
+  auto load_rows = [&](bf16* dst, const bf16* src, bf16* dst2, const bf16* src2) {
     for (int i = threadIdx.x; i < M * n8; i += kThreads) {
       const int r = i / n8, c = (i - r * n8) * 8;
       const int gw = win0 + r / kN;
       const bool valid = gw < total;
-      cp_async16_zfill(dst + r * lda + c, src + (valid ? tok(gw, r % kN) + c : 0), valid);
+      const int64_t off = valid ? tok(gw, r % kN) + c : 0;
+      cp_async16_zfill(dst + r * lda + c, src + off, valid);
+      if (dst2 != nullptr) cp_async16_zfill(dst2 + r * lda + c, src2 + off, valid);
     }
   };
   // The block's columns of row tile `src` to the window-major scratch `dst`.
@@ -1163,12 +1166,10 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
   };
 
   // 1. K9: the rows of x and dy. K6: the rows of g.
-  if (kLn) {
-    load_rows(xn, p.x);
-    load_rows(gt, p.g);
-  } else {
-    load_rows(xn, p.g);
-  }
+  if (kLn)
+    load_rows(xn, p.x, gt, p.g);
+  else
+    load_rows(xn, p.g, nullptr, nullptr);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -1250,7 +1251,7 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
   // K6: x's rows over g's (every warp is done reading g), the block's
   // columns of xn = x to scratch.
   if (!kLn) {
-    load_rows(xn, p.x);
+    load_rows(xn, p.x, nullptr, nullptr);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -1275,7 +1276,8 @@ __global__ void __launch_bounds__(kThreads, 1) attn_bwd_kernel(AttnBwdTc p) {
       smem_addr(vs + (lane & 7) * kKvLd + ((lane >> 3) < 2 ? (lane >> 3) : 2) * 8);
   for (int it = 0; it < kHeads; ++it) {
     const int head = (cg0 + wn) * kHeads + it;
-    const int dcol = do0 + (wn * kHeads + it) * kD;  // the head's do columns in its tile
+    // the head's do columns in its tile (K9: go's tile, every head's columns)
+    const int dcol = kLn ? head * kD : (wn * kHeads + it) * kD;
     // q, k, v of this head for the warp's 16 rows
     float acc[kQkv / 8][4] = {};
     staged_gemm<kQkv / 8>(acc, xn_addr, C, slab, odd_ld(kQkv * gb), (kQkv / 8) * gb, wn * kQkv,
