@@ -86,7 +86,7 @@
 //      one barrier on the head's rnd(p) and rnd(ds) tiles [64][72] of all 64
 //      rows, a warp takes 16 key rows: dk = rnd(ds)^T qs and dv = rnd(p)^T do,
 //      the A fragments of the transposes by ldmatrix.trans. o, dq, dk and dv
-//      leave through a per-warp staging tile, 16 bytes a lane. 167 registers,
+//      leave through a per-warp staging tile, 16 bytes a lane. 170 registers,
 //      no spills; one block an SM (145 / 158 / 207 KB of shared memory).
 //    - K9, kernel B (attn_dx_kernel), K8's form: a warp owns 16 rows and 96
 //      output columns over 128 / (C / 96) window-major scratch rows; dxn =
