@@ -10,9 +10,10 @@ which must pass:
    K3/K5/K7 (``csrc/window_attn.cu``) and K6/K8/K9 (``csrc/swin_train.cu``),
    with each nvcc's time;
 2. hold K1 against its plain PyTorch version at the main path's shapes
-   (B=256, H=12, d=64, T=77) and at edge shapes (B=1, d=16; d=24), fp32 and
-   bf16, then at every index 10..76 in turn on one cache (d=64 and 24), the
-   cache rows and scales bytewise equal after each step;
+   (B=256, H=12, d=64, T=77) and at edge shapes (B=1, d=16; d=24; d=12, 6
+   and 5, the narrower loads), fp32 and bf16, then at every index 10..76 in
+   turn on one cache (d=64 and 24), the cache rows and scales bytewise equal
+   after each step;
 3. exact captions on learned weights: the port's ``predict_prompt`` on the
    committed tiny captioner (greedy and ``--q8``) reproduces the captions
    the JAX package recorded;
@@ -22,9 +23,9 @@ which must pass:
    attention through K1 (launch count checked). Kernel and plain attention
    are teacher-forced on one token stream and their logits compared;
    captions/s and K1's time per call beside its byte bound are measured
-   with CUDA events (K1 launched from Python and as a CUDA graph of the same
-   launches, the kernel's own time), and a ``torch.profiler`` table of one
-   decode printed;
+   with CUDA events (K1 launched from Python, the kernels line's ``ms``, and
+   as a CUDA graph of the same launches, the kernel's own time, its
+   ``graph_ms``), and a ``torch.profiler`` table of one decode printed;
 5. K2 (log-mel) against its plain version at B=64 x 10 s and at edge shapes
    (B=1, odd T, T near n_fft, silence, a pure tone);
 6. K3 (whole Swin block) against its plain version at HTSAT's three stage
@@ -222,7 +223,8 @@ def phase_k1_vs_plain():
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = {}
     cases = [(256, 12, 77, 64, i) for i in (0, 10, 40, 76)] + \
-            [(1, 4, 13, 16, i) for i in (0, 6, 12)] + [(8, 2, 13, 24, i) for i in (0, 12)]
+            [(1, 4, 13, 16, i) for i in (0, 6, 12)] + [(8, 2, 13, 24, i) for i in (0, 12)] + \
+            [(4, 3, 13, d, i) for d in (12, 6, 5) for i in (0, 12)]   # 4-, 2-, 1-byte loads
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         for B, H, T, d, index in cases:
@@ -378,8 +380,9 @@ def phase_full_width():
     # so each call reads its rows from HBM, as a layer's call does in the
     # decode, where the other layers' caches and weights pass in between.
     # Each index is timed twice: launched from Python, as the decode does (the
-    # host's ~20 us a call of checks and ctypes can set that time), and as a
-    # CUDA graph of the same 20 launches, the kernel's own time.
+    # host's ~20 us a call of checks and ctypes can set that time; the
+    # kernels line's "ms", as before), and as a CUDA graph of the same 20
+    # launches, the kernel's own time ("graph_ms").
     g = torch.Generator(device="cuda").manual_seed(3)
     bufs = [k1_inputs(B, H, Lp + steps, d, torch.bfloat16, g) for _ in range(4)]
     kms, gms, pms, bms, nbytes = [], [], [], [], []
@@ -391,17 +394,19 @@ def phase_full_width():
         bm, nb = k1_bound(B, H, d, index, 2)
         bms.append(bm)
         nbytes.append(nb)
-    k1 = {"ms": statistics.mean(gms), "plain_ms": statistics.mean(pms),
-          "bound_ms": statistics.mean(bms)}
+    k1 = {"ms": statistics.mean(kms), "graph_ms": statistics.mean(gms),
+          "plain_ms": statistics.mean(pms), "bound_ms": statistics.mean(bms)}
     print(f"[full] K1 per call, mean over index {Lp}..{Lp + steps - 1} at B={B} bf16: "
-          f"{k1['ms'] * 1e3:.2f} us in a CUDA graph (bound {k1['bound_ms'] * 1e3:.2f} us, "
+          f"{k1['ms'] * 1e3:.2f} us launched from Python, {k1['graph_ms'] * 1e3:.2f} us in a "
+          f"CUDA graph (bound {k1['bound_ms'] * 1e3:.2f} us, "
           f"{statistics.mean(nbytes) / 1e6:.2f} MB at {H100_BYTES_PER_S / 1e12} TB/s; "
-          f"{k1['bound_ms'] / k1['ms']:.1%} of bound), {statistics.mean(kms) * 1e3:.2f} us "
-          f"launched from Python, plain {k1['plain_ms'] * 1e3:.2f} us; first/last index "
-          f"{gms[0] * 1e3:.2f}/{gms[-1] * 1e3:.2f} us in the graph, "
-          f"{kms[0] * 1e3:.2f}/{kms[-1] * 1e3:.2f} us from Python", flush=True)
-    print(f"[full] K1 share of one decode: {launches} x {k1['ms']:.4f} ms = "
-          f"{launches * k1['ms']:.2f} ms of {wall * 1e3:.2f} ms", flush=True)
+          f"{k1['bound_ms'] / k1['ms']:.1%} of bound launched, "
+          f"{k1['bound_ms'] / k1['graph_ms']:.1%} in the graph), plain "
+          f"{k1['plain_ms'] * 1e3:.2f} us; first/last index {kms[0] * 1e3:.2f}/"
+          f"{kms[-1] * 1e3:.2f} us from Python, {gms[0] * 1e3:.2f}/{gms[-1] * 1e3:.2f} us in "
+          f"the graph", flush=True)
+    print(f"[full] K1's kernel time in one decode: {launches} x {k1['graph_ms']:.4f} ms = "
+          f"{launches * k1['graph_ms']:.2f} ms of {wall * 1e3:.2f} ms", flush=True)
 
     # the float path (bf16 weights, bf16 cache; no kernel) for reference
     greedy_decode(gp_bf16, gcfg, emb, steps, 13, 764)
@@ -1399,6 +1404,7 @@ def main():
         "launches": launches,
         "max_abs_err": worst["bfloat16"],
         "ms": k1["ms"],
+        "graph_ms": k1["graph_ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": "bytes",

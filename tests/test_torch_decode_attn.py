@@ -68,7 +68,8 @@ def test_plain_matches_jax_gpt2_step_q8_attention(B, d, index):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d,vec", [(16, 16), (24, 8), (64, 16), (128, 16), (12, 4), (2, 2)])
+@pytest.mark.parametrize("d,vec", [(16, 16), (24, 8), (64, 16), (128, 16), (12, 4), (6, 2),
+                                   (5, 1), (2, 2)])
 def test_plan_picks_the_widest_load_that_divides_a_row(d, vec, dtype):
     """A cache row is d // vec lanes of one vec-byte load each; 4 warps a
     block, one (b, h) each, at the decode's row counts."""

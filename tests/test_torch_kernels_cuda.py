@@ -50,7 +50,10 @@ def _k1_inputs(B, H, T, d, dtype, seed):
 K1_CASES = [(1, 4, 13, 16, 0), (1, 4, 13, 16, 12), (3, 4, 13, 64, 0), (3, 4, 13, 64, 12),
             (8, 2, 13, 24, 0), (8, 2, 13, 24, 5), (8, 2, 13, 24, 12), (256, 12, 77, 64, 0),
             (256, 12, 77, 64, 40), (256, 12, 77, 64, 76), (16, 12, 77, 24, 0),
-            (16, 12, 77, 24, 76), (4, 3, 77, 128, 76)]
+            (16, 12, 77, 24, 76), (4, 3, 77, 128, 76),
+            # the narrower loads: 4, 2 and 1 bytes a lane (d = 12, 6, 5)
+            (4, 3, 13, 12, 0), (4, 3, 13, 12, 12), (4, 3, 13, 6, 0), (4, 3, 13, 6, 12),
+            (4, 3, 13, 5, 0), (4, 3, 13, 5, 12)]
 
 
 @pytest.mark.cuda

@@ -35,12 +35,12 @@
 // - No L2 prefetch of the later rows: issued at the start for every row, it
 //   made the call slower, not faster.
 //
-// Both counts can be set at build time (-DK1_PASSES_IN_FLIGHT=n,
-// -DK1_MIN_BLOCKS=n) to time them with examples/probe_decode_attn.py. Mean
-// over index 10..76 at B = 256 bf16, L2-cold, in a CUDA graph (NVIDIA H100
-// 80GB HBM3, 700.00 W): 2 passes, 6 blocks: 15.9 us (80 registers, no
-// spill); 3 passes: 16.6; 4 passes capped at 6 blocks: 17.2 (spills); 4
-// passes uncapped: 23.8; capped at 8 blocks: 16.7 (spills). The kernel this
+// The two counts (kU, kMinBlocks) were chosen by timing copies of this file
+// built with other values, as examples/probe_decode_attn.py times K1. Mean over
+// index 10..76 at B = 256 bf16, L2-cold, in a CUDA graph (NVIDIA H100 80GB
+// HBM3, 700.00 W): 2 passes, 6 blocks: 15.9 us (80 registers, no spill); 3
+// passes: 16.6; 4 passes capped at 6 blocks: 17.2 (spills); 4 passes
+// uncapped: 23.8; capped at 8 blocks: 16.7 (spills). The kernel this
 // replaced: 47.8 us. Byte bound: 5.96 us.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -56,16 +56,10 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-#ifndef K1_PASSES_IN_FLIGHT
-#define K1_PASSES_IN_FLIGHT 2
-#endif
-#ifndef K1_MIN_BLOCKS
-#define K1_MIN_BLOCKS 6
-#endif
-constexpr int kU = K1_PASSES_IN_FLIGHT;  // passes whose loads are in flight together
-constexpr int kMaxWarps = 4;             // (b, h) a block at most
+constexpr int kU = 2;         // passes whose loads are in flight together
+constexpr int kMaxWarps = 4;  // (b, h) a block at most
 // blocks an SM the registers must allow: 65536 / (6 x 128) = 85, so 80 a thread
-constexpr int kMinBlocks = K1_MIN_BLOCKS;
+constexpr int kMinBlocks = 6;
 
 template <typename T> __device__ __forceinline__ T store_t(float x);
 template <> __device__ __forceinline__ float store_t<float>(float x) { return x; }
