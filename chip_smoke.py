@@ -27,7 +27,11 @@ which must pass:
    as a CUDA graph of the same launches, the kernel's own time, its
    ``graph_ms``), and a ``torch.profiler`` table of one decode printed;
 5. K2 (log-mel) against its plain version at B=64 x 10 s and at edge shapes
-   (B=1, odd T, T near n_fft, silence, a pure tone);
+   (B=1, odd T, T near n_fft and T = 513, silence, pure tones), also at the
+   16 kHz config (n_fft 512, 40 mels) and with 16 mels; each launch through
+   the instantiation ``logmel_plan`` names, all of these the frame-run
+   kernel (``log_mel.fast_launches``), and the first kernel at n_fft 128 and
+   4096;
 6. K3 (whole Swin block) against its plain version at HTSAT's three stage
    shapes, shifted and unshifted, fp32 (the FMA kernel) and bf16 (the
    tensor-core kernels; which of the two ran is checked), and at the stage-4
@@ -41,10 +45,14 @@ which must pass:
    seeded random weights, bf16): B=64 ten-second waves -> K2 -> HTSAT
    (K3 in stages 1-3, K5 + PyTorch MLP in stage 4) -> projection ->
    [64, 1024] L2-normalized embeddings. Launch counts per encode are checked
-   (K2 1, K3 10, K5 2, all 12 through the tensor-core kernels), the embeddings are compared row by row with the
+   (K2 1 through the frame-run kernel, K3 10, K5 2, all 12 through the
+   tensor-core kernels), the embeddings are compared row by row with the
    all-plain path's (cosine), clips/s and BERT-base texts/s are measured
-   with CUDA events, each kernel's time per call is set beside its bound,
-   and a ``torch.profiler`` table of one encode is printed;
+   with CUDA events, each kernel's time per call is set beside its bound
+   (K2's beside ``torch.stft``'s too, the STFT part of its function alone),
+   and a ``torch.profiler`` table of one encode is printed with the device's
+   busy time and K2's share of it (0 where the profiler dropped K2: see
+   ``profiled``);
 9. the train kernels against their plain versions at B=64: K7 (train
    forward), K8 (MLP backward) and K9 (attention + LN1 backward) at the
    stage 1-3 shapes, shift 0 and 4, bf16 and fp32; K6 (window-attention
@@ -66,13 +74,15 @@ which must pass:
 13. a full-width training step (extract_data.yaml's HTSAT + BERT-base,
     embed 1024, bf16 over fp32 parameters, B=64 ten-second waves, Adam lr
     5e-5 cosine, clip 2, spec augmentation and drop path 0.1): one warm-up
-    and 5 timed steps on one batch, launch counts per step checked (K2 1,
-    K7/K8/K9 10 each, K5/K6 2 each; K7's and K5's 12 forward launches, the
-    20 of K8 and K9, K6's 2 and the 44 weight-gradient products of K6, K8
-    and K9 all through the tensor-core kernels), the loss on the batch with fixed random
+    and 5 timed steps on one batch, launch counts per step checked (K2 1
+    through the frame-run kernel, K7/K8/K9 10 each, K5/K6 2 each; K7's and
+    K5's 12 forward launches, the 20 of K8 and K9, K6's 2 and the 44
+    weight-gradient products of K6, K8 and K9 all through the tensor-core
+    kernels), the loss on the batch with fixed random
     draws lower after the steps, per-leaf gradient cosine >= 0.99 and norm
     ratio within 5% of 1 against the all-plain path, samples/s, peak memory, each train kernel's time per
-    call beside its bound and a ``torch.profiler`` table of one step.
+    call beside its bound and a ``torch.profiler`` table of one step (with
+    K2's share of its device time, as in phase 8).
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -175,6 +185,41 @@ def graph_ms(fn, reps, replays=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * reps)
+
+
+def profiled(fn):
+    """``fn()`` once under torch.profiler: (its result, the host's wall ms,
+    the device's busy ms, the key averages). A token kernel opens the window
+    (its ~1 us may count): after an earlier large profile the profiler can
+    drop a window's first kernel. It does not keep K2 here: after phase 4's
+    decode profile the encode's and the step's profiles hold no K2
+    (``k2_profiled_ms`` 0 on the H100), so their device time leaves K2 out;
+    ``examples/profile_paths.py`` profiles both in a process of their own,
+    where K2 is kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # the kernels' own events (CPU-side ops also carry the device time of
+    # the kernels they enclose)
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+    return out, wall, dev_ms, events
+
+
+def k2_profiled_ms(events):
+    """K2's device ms among profiled ``events``: either instantiation, or
+    ``log_mel_kernel``, its one kernel in checkouts before the frame-run
+    kernel (``examples/profile_paths.py --root`` profiles those too)."""
+    names = ("frames::kernel<", "radix2::kernel", "::log_mel_kernel(")
+    return sum(e.self_device_time_total for e in events
+               if any(n in e.key for n in names)) / 1e3
 
 
 def k1_inputs(B, H, T, d, dtype, g):
@@ -475,24 +520,43 @@ def window_bound(B, H, C, heads, window, itemsize, mlp):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+K2_CONFIGS = {"default": {}, "16k": dict(sr=16000, n_fft=512, hop_length=160, n_mels=40,
+                                          f_min=0.0, f_max=8000.0),
+              "16mels": dict(n_mels=16), "n_fft 128": dict(n_fft=128, hop_length=32),
+              "n_fft 4096": dict(n_fft=4096, hop_length=1024)}
+
+
 def phase_k2_vs_plain():
     import torch
 
-    from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel, log_mel_plain
+    from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel, log_mel_plain, logmel_plan
 
-    cfg = LogMelConfig()
     g = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
-    for B, T in [(64, 320000), (1, 320000), (1, 16001), (3, 7777), (1, 1025), (1, 1000)]:
+    cases = [("default", B, T) for B, T in [(64, 320000), (1, 320000), (1, 16001), (3, 7777),
+                                            (1, 1025), (1, 1000), (1, 513)]]
+    cases += [(name, B, T) for name in ("16k", "16mels") for B, T in [(64, 320000), (2, 16001),
+                                                                      (1, 513)]]
+    cases += [("n_fft 128", 2, 16001), ("n_fft 4096", 2, 16001)]
+    for name, B, T in cases:
+        cfg = LogMelConfig(**K2_CONFIGS[name])
+        kind = logmel_plan(cfg, B, T).kernel
+        check(kind == ("radix2" if name.startswith("n_fft") else "frames"),
+              f"K2 {name} B={B} T={T}: the plan names the {kind} kernel")
         w = torch.randn(B, T, generator=g, device="cuda") * 0.1
+        n, fast = log_mel.launches, log_mel.fast_launches
         err = (log_mel(w, cfg) - log_mel_plain(w, cfg)).abs().max().item()
-        print(f"[k2] noise B={B} T={T}: max|dB - dB_plain| = {err:.3g} (tol {K2_TOL})",
-              flush=True)
+        print(f"[k2] {name} noise B={B} T={T}, {kind} kernel: max|dB - dB_plain| = {err:.3g} "
+              f"(tol {K2_TOL})", flush=True)
         check(err <= K2_TOL, f"K2 disagrees with its plain version ({err} dB)")
-        if B == 64:
+        check((log_mel.launches - n, log_mel.fast_launches - fast) == (1, int(kind == "frames")),
+              f"K2 {name} B={B} T={T}: the launch missed the {kind} kernel")
+        if name == "default" and B == 64:
             worst = err
-    silence = torch.zeros(2, 32000, device="cuda")
-    check(bool((log_mel(silence, cfg) == -100.0).all()), "K2: silence is not -100 dB everywhere")
+        silence = torch.zeros(2, T, device="cuda")
+        check(bool((log_mel(silence, cfg) == -100.0).all()),
+              f"K2 {name}: silence is not -100 dB everywhere")
+    cfg = LogMelConfig()
     t = torch.arange(64000, device="cuda") / 32000.0
     for freq in (440.0, 1000.0, 7919.0):
         tone = (0.5 * torch.sin(2 * math.pi * freq * t))[None]
@@ -625,7 +689,6 @@ def phase_encode_full_width():
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from zs_aac_tpu_torch.models.ase import ASE, init_ase
     from zs_aac_tpu_torch.models.convert import cast_floating
@@ -657,15 +720,18 @@ def phase_encode_full_width():
     kernels = {"K2": log_mel, "K3": fused_swin_block, "K5": fused_window_attention}
     for fn in kernels.values():
         fn.launches = fn.tc_launches = 0
+    log_mel.fast_launches = 0
     emb = enc_a(variables, waves)               # the main path, counted
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
     tc = {k: kernels[k].tc_launches for k in ("K3", "K5")}
     print(f"[encode] B={B} 10 s clips, bf16, seeded weights: embeddings "
           f"{tuple(emb.shape)} {emb.dtype}; launches per encode {launches} "
-          f"(expected K2 1, K3 10, K5 2), through the tensor-core kernels {tc}", flush=True)
+          f"(expected K2 1, K3 10, K5 2), through the tensor-core kernels {tc}, K2 through "
+          f"the frame-run kernel {log_mel.fast_launches}", flush=True)
     check(launches == {"K2": 1, "K3": 10, "K5": 2}, "encode launch counts off the main path's")
     check(tc == {"K3": 10, "K5": 2}, "an encode launch of K3 or K5 missed the tensor-core kernels")
+    check(log_mel.fast_launches == 1, "the encode's K2 launch missed the frame-run kernel")
     check(tuple(emb.shape) == (B, 1024) and bool(torch.isfinite(emb.float()).all()),
           "encode output is not a finite [64, 1024]")
     norms = emb.float().norm(dim=-1)
@@ -705,9 +771,16 @@ def phase_encode_full_width():
     k2_ms = timed_ms(lambda r: log_mel(waves, mel_cfg), 10)
     k2_plain = timed_ms(lambda r: log_mel_plain(waves, mel_cfg), 5)
     k2_b, k2_by = k2_bound(B, T, mel_cfg)
-    stats["K2"] = {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_b, "bound_by": k2_by}
+    hann = torch.hann_window(mel_cfg.n_fft, periodic=True, device="cuda")
+    stft = lambda r: torch.stft(waves, mel_cfg.n_fft, mel_cfg.hop_length, window=hann,
+                                center=True, pad_mode="reflect", return_complex=True)
+    stft(0)
+    stft_ms = timed_ms(stft, 10)
+    stats["K2"] = {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_b, "bound_by": k2_by,
+                   "stft_ms": stft_ms}
     print(f"[encode] K2 B={B} T={T}: {k2_ms * 1e3:.1f} us (bound {k2_b * 1e3:.1f} us by {k2_by}, "
-          f"{k2_b / k2_ms:.1%}), plain {k2_plain * 1e3:.1f} us", flush=True)
+          f"{k2_b / k2_ms:.1%}), plain {k2_plain * 1e3:.1f} us, torch.stft (the STFT part "
+          f"alone) {stft_ms * 1e3:.1f} us", flush=True)
     gw = torch.Generator(device="cuda").manual_seed(7)
     per_call = {"K3": [], "K5": []}
     for (H, C, heads), n_calls in zip(STAGES + [(8, 768, 32)], (2, 2, 6, 2)):
@@ -746,17 +819,10 @@ def phase_encode_full_width():
         print(f"[encode] {key} share of one encode: {len(rows)} calls, {total:.2f} ms of "
               f"{enc_ms:.2f} ms", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        enc_a(variables, waves)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev_ms = sum(e.self_device_time_total for e in events
-                 if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
-    print(f"[profile] one encode under torch.profiler: wall {pwall * 1e3:.2f} ms, device time "
-          f"{dev_ms:.2f} ms (device idle {1 - dev_ms / (pwall * 1e3):.1%} of the wall)",
-          flush=True)
+    _, pwall, dev_ms, events = profiled(lambda: enc_a(variables, waves))
+    print(f"[profile] one encode under torch.profiler: wall {pwall:.2f} ms, device time "
+          f"{dev_ms:.2f} ms (device idle {1 - dev_ms / pwall:.1%} of the wall), K2 "
+          f"{k2_profiled_ms(events):.3f} ms of it", flush=True)
     print(events.table(sort_by="cuda_time_total", row_limit=15), flush=True)
     return launches, stats
 
@@ -1203,7 +1269,6 @@ def phase_train_full_width():
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from zs_aac_tpu_torch.models.ase import ASE
     from zs_aac_tpu_torch.ops import window_attn as wa
@@ -1237,6 +1302,7 @@ def phase_train_full_width():
     for fn in kernels.values():
         fn.launches = fn.tc_launches = 0
     wa._wgrad.tc_launches = 0
+    log_mel.fast_launches = 0
     torch.cuda.reset_peak_memory_stats()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     losses = []
@@ -1257,12 +1323,14 @@ def phase_train_full_width():
     print(f"[train] B={B} 10 s clips + {L} tokens, bf16, seeded weights: losses {losses}; "
           f"launches per step {per_step} (expected K2 1, K5 2, K6 2, K7 10, K8 10, K9 10), "
           f"launches through the tensor-core kernels {tc}, weight-gradient products on the "
-          f"tensor cores {tc_products} (two each of K6, K8 and K9: 44)", flush=True)
+          f"tensor cores {tc_products} (two each of K6, K8 and K9: 44), K2 through the "
+          f"frame-run kernel {log_mel.fast_launches / steps}", flush=True)
     check(per_step == {"K2": 1, "K5": 2, "K6": 2, "K7": 10, "K8": 10, "K9": 10},
           "train-step launch counts off the main path's")
     check(tc == {"K5": 2, "K6": 2, "K7": 10, "K8": 10, "K9": 10},
           "a launch of K5, K6, K7, K8 or K9 missed the tensor-core kernels")
     check(tc_products == 44, "a weight-gradient product of K6, K8 or K9 missed the tensor cores")
+    check(log_mel.fast_launches / steps == 1, "a step's K2 launch missed the frame-run kernel")
     after = fixed(state)
     print(f"[train] loss on the batch with fixed draws: {before:.6f} before the warm-up, "
           f"{after:.6f} after the 5 timed steps", flush=True)
@@ -1353,19 +1421,10 @@ def phase_train_full_width():
         print(f"[train] {key} share of one step: {len(rows)} calls, "
               f"{sum(r[0] for r in rows):.2f} ms of {step_ms:.2f} ms", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = step(state, batch, 0)
-        torch.cuda.synchronize()
-        pwall = time.perf_counter() - t0
-    events = prof.key_averages()
-    # device time: the kernels' own events (CPU-side ops also carry the
-    # device time of the kernels they enclose)
-    dev_ms = sum(e.self_device_time_total for e in events
-                 if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
-    print(f"[profile] one train step under torch.profiler: wall {pwall * 1e3:.2f} ms, device "
-          f"time {dev_ms:.2f} ms (device idle {1 - dev_ms / (pwall * 1e3):.1%} of the wall)",
-          flush=True)
+    (state, _), pwall, dev_ms, events = profiled(lambda: step(state, batch, 0))
+    print(f"[profile] one train step under torch.profiler: wall {pwall:.2f} ms, device "
+          f"time {dev_ms:.2f} ms (device idle {1 - dev_ms / pwall:.1%} of the wall), K2 "
+          f"{k2_profiled_ms(events):.3f} ms of it", flush=True)
     print(events.table(sort_by="cuda_time_total", row_limit=20), flush=True)
     return per_step, stats
 

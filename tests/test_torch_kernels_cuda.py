@@ -16,9 +16,13 @@ above the rounding floor on noise). K3/K5 outputs (~8) within 2e-4 in fp32
 The train kernels K6-K9 and the K3/K5 gradients: see ``_check`` (fp32 1e-4
 of the largest entry; bf16 within twice the plain version's own distance
 from its fp32 evaluation). K2's gradient (the VJP of the plain version on
-the same wave): 1e-6 of the largest entry. The split-token weight-gradient product alone
-(fp32 sums of exact bf16 products): 1e-4 of the largest entry.
+the same wave): 1e-6 of the largest entry; on a pure tone, bins 60-90 dB
+under the peak within 0.1 dB (fp32 rounding of the window's leakage). The
+split-token weight-gradient product alone (fp32 sums of exact bf16
+products): 1e-4 of the largest entry.
 """
+
+import math
 
 import pytest
 import torch
@@ -140,6 +144,81 @@ def test_k2_matches_plain(B, T):
     torch.testing.assert_close(got, lm.log_mel_plain(w, cfg), atol=2e-3, rtol=0)
     silence = lm.log_mel(torch.zeros(1, 4000, device="cuda"), cfg)
     assert (silence == -100.0).all()
+
+
+K2_CONFIGS = {"default": {}, "16k": dict(sr=16000, n_fft=512, hop_length=160, n_mels=40,
+                                          f_min=0.0, f_max=8000.0),
+              "16mels": dict(n_mels=16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B,T", [("16k", 2, 16001), ("16k", 64, 320000), ("16k", 1, 513),
+                                      ("16mels", 2, 16001), ("16mels", 1, 513),
+                                      ("default", 1, 513), ("default", 64, 320000)])
+def test_k2_frame_kernel_matches_plain(name, B, T):
+    """K2 through the frame-run kernel (``logmel_plan``'s choice at these
+    shapes, counted in ``.fast_launches``) within 2e-3 dB of the plain
+    version on noise; silence exactly -100 dB."""
+    _need_cuda()
+    cfg = lm.LogMelConfig(**K2_CONFIGS[name])
+    assert lm.logmel_plan(cfg, B, T).kernel == "frames"
+    g = torch.Generator(device="cuda").manual_seed(B + T)
+    w = torch.randn(B, T, generator=g, device="cuda") * 0.1
+    n, fast = lm.log_mel.launches, lm.log_mel.fast_launches
+    got = lm.log_mel(w, cfg)
+    torch.cuda.synchronize()
+    assert (lm.log_mel.launches, lm.log_mel.fast_launches) == (n + 1, fast + 1)
+    torch.testing.assert_close(got, lm.log_mel_plain(w, cfg), atol=2e-3, rtol=0)
+    assert (lm.log_mel(torch.zeros(2, T, device="cuda"), cfg) == -100.0).all()
+
+
+@pytest.mark.cuda
+def test_k2_frame_kernel_takes_a_view_off_16_bytes():
+    """A contiguous wave whose first sample is not 16-byte aligned (a view
+    one sample into its storage) still takes the 16-byte loads (the wrapper
+    copies it) and matches the plain version."""
+    _need_cuda()
+    cfg = lm.LogMelConfig()
+    base = torch.randn(2 * 32000 + 1, generator=torch.Generator(device="cuda").manual_seed(9),
+                       device="cuda") * 0.1
+    w = base[1:].view(2, 32000)
+    assert w.data_ptr() % 16 and lm.logmel_plan(cfg, 2, 32000).vec == 4
+    torch.testing.assert_close(lm.log_mel(w, cfg), lm.log_mel_plain(w, cfg), atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [128, 4096])
+def test_k2_first_kernel_takes_other_n_fft(n_fft):
+    """n_fft outside 256..2048 takes the first kernel (not counted in
+    ``.fast_launches``), within 2e-3 dB of the plain version."""
+    _need_cuda()
+    cfg = lm.LogMelConfig(n_fft=n_fft, hop_length=n_fft // 4)
+    assert lm.logmel_plan(cfg, 2, 20000).kernel == "radix2"
+    w = torch.randn(2, 20000, generator=torch.Generator(device="cuda").manual_seed(n_fft),
+                    device="cuda") * 0.1
+    n, fast = lm.log_mel.launches, lm.log_mel.fast_launches
+    got = lm.log_mel(w, cfg)
+    torch.cuda.synchronize()
+    assert (lm.log_mel.launches, lm.log_mel.fast_launches) == (n + 1, fast)
+    torch.testing.assert_close(got, lm.log_mel_plain(w, cfg), atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freq", [440.0, 1000.0, 7919.0])
+def test_k2_frame_kernel_pure_tones(freq):
+    """A pure tone: bins within 60 dB of the peak within 2e-3 dB of the plain
+    version, 60-90 dB down within 0.1 dB (fp32 rounding of the leakage), the
+    rest under peak - 80 dB."""
+    _need_cuda()
+    cfg = lm.LogMelConfig()
+    t = torch.arange(64000, device="cuda") / 32000.0
+    tone = (0.5 * torch.sin(2 * math.pi * freq * t))[None]
+    got, want = lm.log_mel(tone, cfg), lm.log_mel_plain(tone, cfg)
+    peak = want.max()
+    loud, mid = want > peak - 60.0, (want <= peak - 60.0) & (want > peak - 90.0)
+    torch.testing.assert_close(got[loud], want[loud], atol=2e-3, rtol=0)
+    torch.testing.assert_close(got[mid], want[mid], atol=0.1, rtol=0)
+    assert (got[~(loud | mid)] < peak - 80.0).all()
 
 
 @pytest.mark.cuda

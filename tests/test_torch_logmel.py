@@ -11,6 +11,12 @@ power) in power: bins within 60 dB of the peak are held to 2e-3 dB, bins
 60-90 dB down to 0.1 dB, and the rest, at the rounding floor, must stay
 below peak - 80 dB on both sides. The resample is one fp32 matmul on both sides:
 1e-6 absolute on a [-1, 1] wave.
+
+K2's frame-run kernel cannot run here, but its tables, index maps and plan
+can: a float64 model of its decomposition (Stockham passes over the packed
+complex FFT, the split step, the chunked mel sums) on the tables the kernel
+is handed is held to ``np.fft.rfft`` at 1e-9 of the largest power (float64
+rounding), and its log-mel to ``log_mel_xla`` at the 1e-3 dB above.
 """
 
 import numpy as np
@@ -126,6 +132,159 @@ def test_log_mel_gradient_matches_jax(kw):
     scale = np.abs(want).max()
     assert scale > 0
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
+# -- K2's plan, and the frame-run kernel's decomposition on its own tables ----
+
+PLAN_T = [513, 1000, 1025, 16001, 320000]
+
+
+@pytest.mark.parametrize("T", PLAN_T)
+@pytest.mark.parametrize("kw", CONFIGS, ids=["default", "16k", "16mels"])
+def test_logmel_plan_takes_the_frame_run_kernel(kw, T):
+    cfg = tl.LogMelConfig(**kw)
+    plan = tl.logmel_plan(cfg, 64, T)
+    assert plan.kernel == "frames" and plan.warps == 8
+    assert 1 <= plan.frames <= min(tl._FRAMES, tl.num_frames(T, cfg))
+    assert plan.smem == tl._frames_smem(cfg, plan.frames, plan.warps) <= 232448
+    assert plan.vec == (4 if T % 4 == 0 else 1)
+
+
+def test_logmel_plan_other_shapes():
+    for n in (2, 4, 8, 16, 32, 64, 128, 4096):
+        plan = tl.logmel_plan(tl.LogMelConfig(n_fft=n, hop_length=max(1, n // 4)), 2, 9000)
+        assert plan == tl.LogMelPlan("radix2", 1, 8, 8 * n, 1) and plan.smem <= 32768
+    for n in (256, 2048):
+        assert tl.logmel_plan(tl.LogMelConfig(n_fft=n), 2, 9000).kernel == "frames"
+    # 256 mels over 129 bins: 151 chunk sums do not fit beside the power in a warp's tile
+    many = tl.LogMelConfig(n_fft=256, n_mels=256)
+    assert len(tl._tables(many)["chunks"]) > 128 + 16 - 1
+    assert tl.logmel_plan(many, 1, 9000).kernel == "radix2"
+    # a long hop: frames per block halved until the span fits the card's limit
+    cfg = tl.LogMelConfig(n_fft=2048, hop_length=4000)
+    plan = tl.logmel_plan(cfg, 1, 400000)
+    assert plan.kernel == "frames" and plan.frames < tl._FRAMES
+    assert tl._frames_smem(cfg, plan.frames, 8) <= 232448 < tl._frames_smem(cfg, 2 * plan.frames, 8)
+    for bad in (3, 1000, 8192, 1):
+        with pytest.raises(ValueError, match="power of two"):
+            tl.logmel_plan(tl.LogMelConfig(n_fft=bad), 1, 32000)
+    with pytest.raises(ValueError, match="reflect-padded"):
+        tl.logmel_plan(tl.LogMelConfig(), 1, 512)
+    with pytest.raises(ValueError, match="batch"):
+        tl.logmel_plan(tl.LogMelConfig(), 0, 32000)
+
+
+def test_cpu_waves_launch_no_kernel():
+    wave = torch.from_numpy((np.random.default_rng(4).standard_normal((2, 4000)) * 0.1)
+                            .astype(np.float32))
+    before = tl.log_mel.launches, tl.log_mel.fast_launches
+    tl.log_mel(wave, tl.LogMelConfig())
+    assert (tl.log_mel.launches, tl.log_mel.fast_launches) == before
+
+
+@pytest.mark.parametrize("kw", CONFIGS, ids=["default", "16k", "16mels"])
+def test_frame_kernel_tables(kw):
+    """Each band's chunks tile its non-zero bins in order, with the
+    filterbank's weights (zeros past a chunk's length); the chunk sums fit in
+    a warp's tile beside the power; the twiddles are the passes' in order."""
+    cfg = tl.LogMelConfig(**kw)
+    t = tl._tables(cfg)
+    m = cfg.n_fft // 2
+    lo, ln = t["chunks"] & 0xFFFF, t["chunks"] >> 16
+    assert (ln >= 1).all() and (ln <= tl._CHUNK).all()
+    assert t["first"][0] == 0 and t["first"][-1] == len(t["chunks"])
+    for band in range(cfg.n_mels):
+        c = np.arange(t["first"][band], t["first"][band + 1])
+        bins = np.concatenate([np.arange(lo[i], lo[i] + ln[i]) for i in c])
+        np.testing.assert_array_equal(bins, np.flatnonzero(t["mel_w"][:, band]))
+        for i in c:
+            np.testing.assert_array_equal(t["melw"][:ln[i], i],
+                                          t["mel_w"][lo[i]:lo[i] + ln[i], band])
+            assert not t["melw"][ln[i]:, i].any()
+    assert len(t["chunks"]) <= m + m // 8 - 1
+    rows, ns = 0, tl._radices(cfg.n_fft)[0]
+    for r in tl._radices(cfg.n_fft)[1:]:
+        q, jm = np.divmod(np.arange((r - 1) * ns), ns)
+        want = np.exp(-2j * np.pi * jm * (q + 1) / (ns * r))
+        got = t["fft_tw"][rows:rows + (r - 1) * ns]
+        np.testing.assert_allclose(got[:, 0] + 1j * got[:, 1], want, rtol=0, atol=1e-15)
+        rows, ns = rows + (r - 1) * ns, ns * r
+    assert rows < m and not t["fft_tw"][rows:].any()
+    k = np.arange(m // 2 + 1)
+    np.testing.assert_allclose(t["split_tw"][:, 0] + 1j * t["split_tw"][:, 1],
+                               np.exp(-2j * np.pi * k / cfg.n_fft), rtol=0, atol=1e-15)
+
+
+def _model_spectrum(frames, n_fft, t):
+    """The frame-run kernel's power spectrum in float64: the real frames
+    [..., n_fft] packed as an M-point complex FFT of (even, odd) samples,
+    Stockham passes of ``_radices(n_fft)`` with the tables' twiddles (an
+    exact r-point DFT per butterfly), then the split step."""
+    m = n_fft // 2
+    data, ns, row = frames[..., 0::2] + 1j * frames[..., 1::2], 1, 0
+    tw = t["fft_tw"][:, 0] + 1j * t["fft_tw"][:, 1]
+    for r in tl._radices(n_fft):
+        j, q = np.arange(m // r)[:, None], np.arange(r)[None, :]
+        v = data[..., j + q * (m // r)]                   # butterfly j reads x[j + q M/r]
+        if ns > 1:
+            v[..., 1:] *= tw[row + (q[:, 1:] - 1) * ns + j % ns]
+            row += (r - 1) * ns
+        out = np.empty_like(data)
+        out[..., (j // ns) * ns * r + j % ns + q * ns] = v @ np.exp(-2j * np.pi * q.T * q / r)
+        data, ns = out, ns * r
+    k = np.arange(m // 2 + 1)
+    a, c = data[..., k], np.conj(data[..., (m - k) % m])
+    even, odd = (a + c) / 2, (a - c) / 2j
+    w = t["split_tw"][:, 0] + 1j * t["split_tw"][:, 1]
+    power = np.empty(frames.shape[:-1] + (m + 1,))
+    power[..., m - k] = np.abs(even - w * odd) ** 2       # X[M-k] = conj(E - W^k O)
+    power[..., k] = np.abs(even + w * odd) ** 2
+    return power
+
+
+def _model_log_mel(wave, cfg):
+    """K2's frame-run kernel in float64 on its tables and index maps: each
+    block's span of samples (reflected where it crosses an end of the row),
+    the frames read from it, the spectrum, the chunk sums and band sums."""
+    t, plan = tl._tables(cfg), tl.logmel_plan(cfg, *wave.shape)
+    B, T = wave.shape
+    n, hop, F = cfg.n_fft, cfg.hop_length, tl.num_frames(T, cfg)
+    frames = np.empty((B, F, n))
+    for f0 in range(0, F, plan.frames):
+        nf = min(plan.frames, F - f0)
+        idx = f0 * hop - n // 2 + np.arange((nf - 1) * hop + n)
+        idx = np.where(idx < 0, -idx, idx)
+        idx = np.where(idx >= T, 2 * (T - 1) - idx, idx)
+        span = wave[:, idx].astype(np.float64)
+        for fl in range(nf):
+            frames[:, f0 + fl] = span[:, fl * hop:fl * hop + n]
+    power = _model_spectrum(frames * t["win"], n, t)
+    lo, m = t["chunks"] & 0xFFFF, n // 2
+    part = sum(power[..., np.minimum(lo + i, m)] * t["melw"][i] for i in range(tl._CHUNK))
+    mel = np.stack([part[..., t["first"][b]:t["first"][b + 1]].sum(-1)
+                    for b in range(cfg.n_mels)], -1)
+    return (10 * np.log10(np.maximum(mel, cfg.amin)) - tl._log_ref(cfg))[:, None]
+
+
+@pytest.mark.parametrize("n_fft", [256, 512, 1024, 2048])
+def test_frame_kernel_spectrum_matches_rfft(n_fft):
+    cfg = tl.LogMelConfig(n_fft=n_fft)
+    x = np.random.default_rng(n_fft).standard_normal((3, 5, n_fft))
+    want = np.abs(np.fft.rfft(x)) ** 2
+    got = _model_spectrum(x, n_fft, tl._tables(cfg))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9 * want.max())
+
+
+@pytest.mark.parametrize("B,T", [(2, 16000), (1, 16001), (1, 1025), (1, 513)])
+@pytest.mark.parametrize("kw", CONFIGS, ids=["default", "16k", "16mels"])
+def test_frame_kernel_model_matches_jax(kw, B, T):
+    wave = (np.random.default_rng(T + B).standard_normal((B, T)) * 0.1).astype(np.float32)
+    want = _jax(wave, kw)
+    got = _model_log_mel(wave, tl.LogMelConfig(**kw))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    silence = _model_log_mel(np.zeros((1, T), np.float32), tl.LogMelConfig(**kw))
+    assert (silence == -100.0).all()
 
 
 @pytest.mark.parametrize("sr_in,n,target", [(44100, 44100, 32000), (48000, 24000, None),
