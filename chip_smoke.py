@@ -15,8 +15,9 @@ which must pass:
    turn on one cache (d=64 and 24), the cache rows and scales bytewise equal
    after each step;
 3. exact captions on learned weights: the port's ``predict_prompt`` on the
-   committed tiny captioner (greedy and ``--q8``) reproduces the captions
-   the JAX package recorded;
+   committed tiny captioner (greedy and ``--q8``, beam ``--isbeam`` and
+   ``--isbeam --q8``) reproduces the captions the JAX package recorded, K1
+   launched in the two ``--q8`` modes only;
 4. the decode half at full width: CLAP embedding -> MLP mapper
    1024->3840->7680 -> GPT-2 124M (seeded random weights), B=256, Lp=10, 67
    greedy steps, bf16 activations, w8a8 weights + int8 KV cache, every
@@ -82,7 +83,19 @@ which must pass:
     draws lower after the steps, per-leaf gradient cosine >= 0.99 and norm
     ratio within 5% of 1 against the all-plain path, samples/s, peak memory, each train kernel's time per
     call beside its bound and a ``torch.profiler`` table of one step (with
-    K2's share of its device time, as in phase 8).
+    K2's share of its device time, as in phase 8);
+14. beam search at full width: the decode half of phase 4 with B=64 clips x
+    K=3 beams (the driver's ``--beam_size``), Lp=10, 67 steps, bf16, w8a8 +
+    int8 KV cache, every attention through K1 at B*K rows (launches checked:
+    n_layer x the steps run). Token ids in range, scores finite, each clip's
+    best beam (``argmax(scores)``, the driver's pick) its first; teacher-forced
+    on the decode's own tokens and beam sources, K1's logits against the
+    plain attention's within ``LOGIT_TOL`` (phase 4's flip rule); captions/s
+    (median of three walls), the best beam's free-running agreement with the
+    plain path, a ``torch.profiler`` table of one decode's kernels (read off
+    the profiler's records: ``profiled_kernels``) with the device's busy
+    time, idle share and K1's share, and ``reorder_beam_cache``'s time per
+    decode (CUDA events over the decode's positions) and its share.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -213,6 +226,29 @@ def profiled(fn):
     return out, wall, dev_ms, events
 
 
+def profiled_kernels(fn):
+    """``fn()`` once under torch.profiler, device activity only: (the host's
+    wall ms, {kernel name: [device ms, calls]}). The kernels are read off the
+    profiler's own records: ``key_averages`` over a 67-step beam decode's
+    ~50,000 kernels takes 20-40 s on the card's host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CPU:
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e6
+            k[1] += 1
+    return wall, kernels
+
+
 def k2_profiled_ms(events):
     """K2's device ms among profiled ``events``: either instantiation, or
     ``log_mel_kernel``, its one kernel in checkouts before the frame-run
@@ -318,7 +354,8 @@ def phase_fixture_captions():
     from zs_aac_tpu_torch.testdata import stage_tiny_captioner
     from zs_aac_tpu_torch.train.predict_prompt import main as predict
 
-    for mode, flags in (("greedy", []), ("q8", ["--q8"])):
+    for mode, flags in (("greedy", []), ("q8", ["--q8"]), ("beam", ["--isbeam"]),
+                        ("beam_q8", ["--isbeam", "--q8"])):
         with tempfile.TemporaryDirectory() as tmp:
             staged = stage_tiny_captioner(tmp)
             decode_attn_q8.launches = 0
@@ -332,7 +369,7 @@ def phase_fixture_captions():
         print(f"[fixture] predict_prompt {mode} on cuda: {n_same}/{len(want)} captions "
               f"equal to the JAX package's, K1 launches {launches}", flush=True)
         check(got == want, f"{mode} captions differ from the recorded ones")
-        check((launches > 0) == (mode == "q8"), f"{mode}: unexpected K1 launches {launches}")
+        check((launches > 0) == mode.endswith("q8"), f"{mode}: unexpected K1 launches {launches}")
 
 
 def phase_full_width():
@@ -472,6 +509,153 @@ def phase_full_width():
     print(f"[profile] one decode under torch.profiler: wall {pwall * 1e3:.2f} ms", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
     return launches, k1
+
+
+# -- beam search ----------------------------------------------------------------
+
+
+def beam_steps_run(lens, entry_length):
+    """Steps the beam loop ran: it leaves at the first check (every
+    CHECK_EVERY steps) after the step where the last beam stopped, i.e. the
+    longest beam's length - 1."""
+    from zs_aac_tpu_torch.decoding.greedy import CHECK_EVERY
+
+    t_all = int(lens.max()) - 1
+    return min(entry_length - 1, math.ceil(t_all / CHECK_EVERY) * CHECK_EVERY)
+
+
+def phase_beam_full_width():
+    import torch
+
+    from zs_aac_tpu_torch.decoding import beam
+    from zs_aac_tpu_torch.models.caption import (CaptionConfig, caption_embeddings,
+                                                 init_caption_model)
+    from zs_aac_tpu_torch.models.convert import cast_floating
+    from zs_aac_tpu_torch.models.gpt2 import (GPT2Config, expand_beam_cache, gpt2_embed,
+                                              gpt2_prefill_q8, gpt2_step_q8, init_kv_cache_q8,
+                                              quantize_gpt2_int8, reorder_beam_cache)
+    from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8, decode_attn_q8_plain
+
+    B, K, Lp, steps = 64, 3, 10, 67
+    cfg = CaptionConfig(prefix_length=Lp, prefix_size=1024, gpt2=GPT2Config())
+    gcfg = cfg.gpt2
+    with torch.no_grad():
+        params = init_caption_model(cfg, seed=0, device="cuda")
+        qp = quantize_gpt2_int8(cast_floating(params["gpt2"], torch.bfloat16), "w8a8")
+        g = torch.Generator(device="cuda").manual_seed(4)
+        prefix = torch.randn(B, cfg.prefix_size, generator=g, device="cuda")
+        emb = caption_embeddings(params, cfg, prefix).to(torch.bfloat16)
+        del params
+
+    def decode(attention=decode_attn_q8):
+        return beam.beam_search_batched_q8(qp, gcfg, emb, K, steps, 13, attention=attention)
+
+    decode()                                    # warm-up
+    torch.cuda.synchronize()
+    # the main path, counted; each step's selection kept for the teacher forcing
+    picks, select = [], beam._beam_select
+    beam._beam_select = lambda *a: picks.append(select(*a)) or picks[-1]
+    try:
+        decode_attn_q8.launches = 0
+        t0 = time.perf_counter()
+        toks, lens, scores = decode()
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t0]
+        launches = decode_attn_q8.launches
+    finally:
+        beam._beam_select = select
+    steps_run = beam_steps_run(lens, steps)
+    print(f"[beam] w8a8+q8 beam B={B} K={K} Lp={Lp}: lengths min/max {int(lens.min())}/"
+          f"{int(lens.max())}, steps run {steps_run}, K1 launches {launches} "
+          f"(expected {gcfg.n_layer} x {steps_run}) at {B * K} rows", flush=True)
+    check(launches == gcfg.n_layer * steps_run, "beam: K1 launch count off the main path's")
+    check(len(picks) == steps_run, "beam: selections off the steps run")
+    check(tuple(toks.shape) == (B, K, steps) and tuple(scores.shape) == (B, K),
+          f"beam outputs {tuple(toks.shape)} {tuple(scores.shape)}")
+    check(bool(((toks >= 0) & (toks < gcfg.vocab_size)).all()), "beam: token ids out of range")
+    check(bool(torch.isfinite(scores).all()), "beam: scores not finite")
+    best = scores.argmax(dim=1)
+    first_best = torch.isclose(scores[:, 0], scores.max(dim=1).values, rtol=1e-6, atol=0)
+    print(f"[beam] best beam (argmax of scores) is the first in {int((best == 0).sum())} of "
+          f"{B} clips, within an fp32 rounding of it in {int(first_best.sum())}", flush=True)
+    check(bool(first_best.all()), "beam: a clip's best beam is not its first")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print(f"[beam] decode walls {[round(w * 1e3, 2) for w in walls]} ms -> "
+          f"{B / wall:.1f} captions/s (median; {steps_run} steps, {B * K} beam rows)",
+          flush=True)
+
+    # free-running agreement of the best beams with the plain attention (information)
+    rows = torch.arange(B, device="cuda")
+    toks_p, _, scores_p = decode(attention=decode_attn_q8_plain)
+    best_p = scores_p.argmax(dim=1)
+    agree = (toks_p[rows, best_p] == toks[rows, best]).float().mean().item()
+    same = int((toks_p[rows, best_p] == toks[rows, best]).all(dim=1).sum())
+    print(f"[beam] free-running best-beam token agreement, K1 vs plain: {agree:.4f} "
+          f"({same} of {B} captions identical)", flush=True)
+
+    # teacher-forced on the decode's own tokens and beam sources: K1 vs plain
+    with torch.no_grad():
+        caches = []
+        for _ in range(2):
+            c = init_kv_cache_q8(gcfg, B, Lp + steps)
+            logits, c = gpt2_prefill_q8(qp, gcfg, emb, c)
+            caches.append(expand_beam_cache(c, K))
+        _, cur = beam._topk_argmax(torch.log_softmax(logits[:, -1].float(), dim=-1), K)
+        dmax, flip_margin, n_flips, lmax = 0.0, 0.0, 0, 0.0
+        for i in range(1, steps_run + 1):
+            x = gpt2_embed(qp, cur.reshape(-1))
+            lk, _ = gpt2_step_q8(qp, gcfg, x, caches[0], Lp + i - 1)
+            lp, _ = gpt2_step_q8(qp, gcfg, x, caches[1], Lp + i - 1,
+                                 attention=decode_attn_q8_plain)
+            dmax = max(dmax, (lk - lp).abs().max().item())
+            lmax = max(lmax, lp.abs().max().item())
+            top2 = lp.topk(2, dim=-1).values
+            flips = lk.argmax(-1) != lp.argmax(-1)
+            if flips.any():
+                n_flips += int(flips.sum())
+                flip_margin = max(flip_margin, (top2[:, 0] - top2[:, 1])[flips].max().item())
+            _, src, cur, _ = picks[i - 1]
+            for c in caches:
+                reorder_beam_cache(c, src, Lp + i)
+    print(f"[beam] teacher-forced logits, K1 vs plain: max|diff| {dmax:.4g} (tol {LOGIT_TOL}; "
+          f"max|logit| {lmax:.3g}), argmax flips {n_flips} of {B * K * steps_run}, largest "
+          f"top-2 margin at a flip {flip_margin:.4g}", flush=True)
+    check(dmax <= LOGIT_TOL, "beam: teacher-forced logits diverge beyond the bf16 tolerance")
+    check(n_flips == 0 or flip_margin <= 2 * dmax,
+          "beam: an argmax flip at a top-2 margin larger than the logit divergence")
+    del caches
+
+    # where one decode spends its device time; K1's share of it
+    pwall, kernels = profiled_kernels(decode)
+    dev_ms = sum(ms for ms, _ in kernels.values())
+    k1_ms = sum(ms for name, (ms, _) in kernels.items() if "decode_attn_q8_kernel" in name)
+    print(f"[beam] one decode under torch.profiler: wall {pwall:.2f} ms, device busy "
+          f"{dev_ms:.2f} ms, idle {1 - dev_ms / pwall:.1%}; K1 {k1_ms:.2f} ms "
+          f"({k1_ms / dev_ms:.1%} of the device time)", flush=True)
+    print(f"{'device ms':>10} {'share':>6} {'calls':>6} {'us/call':>8}  kernel", flush=True)
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"{ms:10.2f} {ms / dev_ms:6.1%} {n:6d} {ms / n * 1e3:8.2f}  {name[:100]}",
+              flush=True)
+
+    # the cache reorder alone at the decode's positions, a full-size beam cache
+    cache = expand_beam_cache(init_kv_cache_q8(gcfg, B, Lp + steps), K)
+    srcs = [torch.randint(0, K, (B, K), generator=g, device="cuda") for _ in range(steps_run)]
+    reorder_beam_cache(cache, srcs[0], Lp + 1)
+    reorder_ms = timed_ms(lambda r: reorder_beam_cache(cache, srcs[r], Lp + 1 + r),
+                          steps_run) * steps_run
+    nbytes = sum(2 * 2 * gcfg.n_layer * B * K * gcfg.n_head * (Lp + i) * (gcfg.n_embd //
+                                                                          gcfg.n_head + 4)
+                 for i in range(1, steps_run + 1))
+    print(f"[beam] reorder_beam_cache: {reorder_ms:.2f} ms per decode over {steps_run} steps "
+          f"({reorder_ms / dev_ms:.1%} of the profiled device time; "
+          f"{nbytes / 1e9:.2f} GB read and written, "
+          f"{nbytes / (reorder_ms * 1e-3) / 1e12:.2f} TB/s)", flush=True)
+    return launches
 
 # -- the encode half ----------------------------------------------------------
 
@@ -1454,6 +1638,7 @@ def main():
     phase_fixture_train()
     phase_drivers()
     train_launches, train = phase_train_full_width()
+    beam_launches = phase_beam_full_width()
 
     kernels = [{
         "name": "decode_attn_q8",
@@ -1461,6 +1646,7 @@ def main():
         "source": "zs_aac_tpu_torch/csrc/decode_attn.cu",
         "replaces": "zs_aac_tpu/ops/decode_attn.py:51",
         "launches": launches,
+        "beam_launches": beam_launches,
         "max_abs_err": worst["bfloat16"],
         "ms": k1["ms"],
         "graph_ms": k1["graph_ms"],

@@ -100,7 +100,7 @@ def test_predict_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
         predict_prompt.main(["--test_dir", str(tmp_path), "--data", "none.pkl"])
 
 
-@pytest.mark.parametrize("flag", ["--isbeam", "--magic"])
+@pytest.mark.parametrize("flag", ["--bf16_softmax", "--magic", "--q8_tower"])
 def test_predict_later_slices_raise(flag, tmp_path):
     (tmp_path / "params.json").write_text('{"data": [], "prefix_length": 4}')
     with pytest.raises(NotImplementedError, match="later slice"):

@@ -131,6 +131,53 @@ def test_q8_step_kernel_path_matches_plain_path():
 
 
 @pytest.mark.cuda
+def test_q8_beam_through_k1_matches_plain_path():
+    """The int8-cache beam search on a small random GPT-2 (fp32) launches K1
+    n_layer times a step at B*K rows; step-locked on its own tokens and beam
+    sources, each step's logits through K1 and through the plain attention
+    agree within 1e-3 (as in the step test above)."""
+    _need_cuda()
+    from zs_aac_tpu_torch.decoding import beam
+    from zs_aac_tpu_torch.decoding.greedy import CHECK_EVERY
+    from zs_aac_tpu_torch.models.gpt2 import (GPT2Config, expand_beam_cache, gpt2_embed,
+                                              gpt2_prefill_q8, gpt2_step_q8, init_gpt2,
+                                              init_kv_cache_q8, reorder_beam_cache)
+
+    cfg = GPT2Config(vocab_size=101, n_positions=64, n_embd=128, n_layer=2, n_head=4)
+    params = init_gpt2(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    B, K, Lp, steps = 6, 3, 6, 14
+    emb = torch.randn(B, Lp, 128, generator=g, device="cuda")
+    picks, select = [], beam._beam_select
+    beam._beam_select = lambda *a: picks.append(select(*a)) or picks[-1]
+    try:
+        before = decode_attn_q8.launches
+        toks, lens, scores = beam.beam_search_batched_q8(params, cfg, emb, K, steps, 13)
+        launches = decode_attn_q8.launches - before
+    finally:
+        beam._beam_select = select
+    steps_run = min(steps - 1, -(-(int(lens.max()) - 1) // CHECK_EVERY) * CHECK_EVERY)
+    assert len(picks) == steps_run and launches == cfg.n_layer * steps_run
+    assert bool(torch.isfinite(scores).all()) and int(toks.max()) < cfg.vocab_size
+    with torch.no_grad():
+        caches = []
+        for _ in range(2):
+            c = init_kv_cache_q8(cfg, B, Lp + steps, device="cuda")
+            logits, c = gpt2_prefill_q8(params, cfg, emb, c)
+            caches.append(expand_beam_cache(c, K))
+        _, cur = beam._topk_argmax(torch.log_softmax(logits[:, -1].float(), dim=-1), K)
+        for i in range(1, steps_run + 1):
+            x = gpt2_embed(params, cur.reshape(-1))
+            lk, _ = gpt2_step_q8(params, cfg, x, caches[0], Lp + i - 1)
+            lp, _ = gpt2_step_q8(params, cfg, x, caches[1], Lp + i - 1,
+                                 attention=decode_attn_q8_plain)
+            torch.testing.assert_close(lk, lp, atol=1e-3, rtol=0)
+            _, src, cur, _ = picks[i - 1]
+            for c in caches:
+                reorder_beam_cache(c, src, Lp + i)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T", [(1, 1000), (1, 1025), (2, 16001), (8, 320000)])
 def test_k2_matches_plain(B, T):
     _need_cuda()

@@ -1,4 +1,5 @@
-"""The port's ``predict_prompt`` (greedy, float and ``--q8``) against the JAX
+"""The port's ``predict_prompt`` (greedy and ``--isbeam``, float and
+``--q8``, with and without ``--sound_effect`` hard prompts) against the JAX
 package's, and the committed tiny-captioner fixture.
 
 A run dir is made with the JAX package's own CLIs (``train_prompt`` on
@@ -8,7 +9,8 @@ trained to convergence). Both packages' ``predict_prompt`` then run on copies of
 must be identical. The committed fixture (``zs_aac_tpu_torch/testdata``,
 the same recipe, run once) must still give its recorded captions from
 both packages. The port's msgpack reader must load ``best.pth`` to the
-arrays flax loads.
+arrays flax loads, and its parser must take every option of the JAX
+package's.
 
 Regenerate the committed fixture with
 ``PYTHONPATH=. python tests/test_torch_predict.py --write-fixture``.
@@ -72,16 +74,20 @@ def make_tiny_run(root):
     return run_dir, train_bank, test_bank
 
 
-def _jax_predict(run_dir, bank, q8):
+# the decode modes of the fixture and their flags
+MODES = {"greedy": [], "q8": ["--q8"], "beam": ["--isbeam"], "beam_q8": ["--isbeam", "--q8"]}
+
+
+def _jax_predict(run_dir, bank, flags):
     from zs_aac_tpu.train.predict_prompt import main
 
-    main(["--test_dir", run_dir, "--data", bank] + (["--q8"] if q8 else []))
+    main(["--test_dir", run_dir, "--data", bank] + flags)
 
 
-def _port_predict(run_dir, bank, q8):
+def _port_predict(run_dir, bank, flags):
     from zs_aac_tpu_torch.train.predict_prompt import main
 
-    main(["--test_dir", run_dir, "--data", bank, "--device", "cpu"] + (["--q8"] if q8 else []))
+    main(["--test_dir", run_dir, "--data", bank, "--device", "cpu"] + flags)
 
 
 def _outputs(run_dir):
@@ -100,14 +106,19 @@ def fresh_run(tmp_path_factory):
     return make_tiny_run(str(tmp_path_factory.mktemp("tiny_run")))
 
 
-@pytest.mark.parametrize("q8", [False, True], ids=["greedy", "q8"])
-def test_predict_outputs_identical_to_jax(fresh_run, tmp_path, q8):
-    run_dir, _, test_bank = fresh_run
+def _both_predict(run_dir, test_bank, tmp_path, flags):
     runs = {}
     for side, predict in (("jax", _jax_predict), ("port", _port_predict)):
         runs[side] = str(tmp_path / side)
         shutil.copytree(run_dir, runs[side])
-        predict(runs[side], test_bank, q8)
+        predict(runs[side], test_bank, flags)
+    return runs
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_predict_outputs_identical_to_jax(fresh_run, tmp_path, mode):
+    run_dir, _, test_bank = fresh_run
+    runs = _both_predict(run_dir, test_bank, tmp_path, MODES[mode])
     jax_preds, jax_scores = _outputs(runs["jax"])
     port_preds, port_scores = _outputs(runs["port"])
     assert len(port_preds) == 12
@@ -119,14 +130,63 @@ def test_predict_outputs_identical_to_jax(fresh_run, tmp_path, q8):
             "total_s", "n_clips"} <= set(timing) and timing["n_clips"] == 12
 
 
-@pytest.mark.parametrize("q8", [False, True], ids=["greedy", "q8"])
-def test_committed_fixture_captions(tmp_path, q8):
-    mode = "q8" if q8 else "greedy"
+@pytest.mark.parametrize("mode", list(MODES))
+def test_committed_fixture_captions(tmp_path, mode):
     for side, predict in (("jax", _jax_predict), ("port", _port_predict)):
         staged = stage_tiny_captioner(tmp_path / side)
-        predict(staged["run_dir"], staged["test_bank"], q8)
+        predict(staged["run_dir"], staged["test_bank"], MODES[mode])
         assert _captions(staged["run_dir"]) == staged["expected"][mode], side
     assert set(staged["expected"][mode].values()) == set(CAPTIONS)
+
+
+# An AudioSet-style label bank: each clip's three nearest labels become its
+# hard prompt ("There are dog, rain, car horn in this audio."); "wind" is in
+# no caption, so its words are unknown to the word tokenizer.
+LABELS = ["dog", "rain", "car horn", "birds", "wind"]
+
+
+def _write_label_bank(path):
+    r = np.random.default_rng(7)
+    records = [{"label": name, "label_id": i,
+                "label_embedding": _cluster(r, i, noise=0.3) if i < 4
+                else r.standard_normal((1, E)).astype(np.float32)}
+               for i, name in enumerate(LABELS)]
+    with open(path, "wb") as f:
+        pickle.dump(records, f)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_sound_effect_outputs_identical_to_jax(fresh_run, tmp_path, mode):
+    run_dir, _, test_bank = fresh_run
+    bank = str(tmp_path / "labels.pkl")
+    _write_label_bank(bank)
+    runs = _both_predict(run_dir, test_bank, tmp_path, MODES[mode] + ["--sound_effect", bank])
+    jax_preds, jax_scores = _outputs(runs["jax"])
+    port_preds, port_scores = _outputs(runs["port"])
+    assert len(port_preds) == 12
+    assert port_preds == jax_preds
+    assert port_scores == jax_scores
+
+
+def test_parser_takes_every_option_of_the_jax_parser(tmp_path):
+    from zs_aac_tpu.train.predict_prompt import build_parser as jax_parser
+    from zs_aac_tpu_torch.train.predict_prompt import build_parser
+
+    port = build_parser()
+    want = jax_parser()
+    options = [a for a in want._actions if a.option_strings and a.dest != "help"]
+    assert len(options) == 15
+    for action in options:
+        argv = ["--test_dir", "x", "--data", "y"]
+        if action.dest not in ("test_dir", "data"):
+            argv.append(action.option_strings[0])
+            if action.nargs != 0:
+                argv.append("1")
+        got = port.parse_args(argv)
+        assert vars(got)[action.dest] == vars(want.parse_args(argv))[action.dest], action.dest
+    defaults = vars(want.parse_args(["--test_dir", "x", "--data", "y"]))
+    assert {k: v for k, v in vars(port.parse_args(["--test_dir", "x", "--data", "y"])).items()
+            if k != "device"} == defaults
 
 
 def test_msgpack_reader_matches_flax():
@@ -160,10 +220,10 @@ def write_fixture():
     with tempfile.TemporaryDirectory() as tmp:
         run_dir, train_bank, test_bank = make_tiny_run(tmp)
         expected = {}
-        for mode, q8 in (("greedy", False), ("q8", True)):
+        for mode, flags in MODES.items():
             d = os.path.join(tmp, mode)
             shutil.copytree(run_dir, d)
-            _jax_predict(d, test_bank, q8)
+            _jax_predict(d, test_bank, flags)
             expected[mode] = _captions(d)
         out = FIXTURE_DIR
         os.makedirs(out, exist_ok=True)

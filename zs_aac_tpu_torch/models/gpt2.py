@@ -18,6 +18,10 @@ Departures from the JAX functions, all exact:
 The int8 GEMMs use ``torch._int_mm`` (int32 accumulation), as the JAX
 package leaves them to XLA's ``dot_general``. The attention of the int8
 decode step is kernel K1 (``ops/decode_attn.py``).
+
+Beam search keeps one cache row per logical beam (``expand_beam_cache``,
+``reorder_beam_cache``) and steps with ``gpt2_step``/``gpt2_step_q8`` at
+B * K rows, where the JAX package's beam steps read an ancestry table.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ __all__ = [
     "quantize_kv_cache",
     "gpt2_prefill_q8",
     "gpt2_step_q8",
+    "expand_beam_cache",
+    "reorder_beam_cache",
 ]
 
 
@@ -400,3 +406,27 @@ def gpt2_step_q8(params, cfg: GPT2Config, x_embed, cache, index: int,
         x = _mlp_residual(blk, cfg, x)
     x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
     return _logits(x, params)[:, 0].float(), cache
+
+
+# ---------------------------------------------------------------------------
+# Beam caches: one row per logical beam
+# ---------------------------------------------------------------------------
+
+
+def expand_beam_cache(cache, beam_size: int) -> dict:
+    """A prefilled cache of B rows (either layout) -> B * beam_size rows,
+    row ``b * beam_size + j`` a copy of row ``b``."""
+    return {name: t.repeat_interleave(beam_size, dim=1) for name, t in cache.items()}
+
+
+def reorder_beam_cache(cache, src, n_valid: int) -> dict:
+    """After a beam step: row ``b * K + j`` takes row ``b * K + src[b, j]``
+    over positions ``0..n_valid-1`` (k, v and, in the int8 layout, their
+    scales), in place. ``src``: [B, K] source beams. Positions past
+    ``n_valid`` are not read before the step that writes them."""
+    B, K = src.shape
+    rows = (torch.arange(B, device=src.device)[:, None] * K + src).reshape(-1)
+    for t in cache.values():
+        valid = t[:, :, :, :n_valid]
+        valid.copy_(valid.index_select(1, rows))
+    return cache

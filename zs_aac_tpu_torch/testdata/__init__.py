@@ -8,7 +8,7 @@ CLIs (``tests/test_torch_predict.py`` regenerates it with
 training bank's captions (``train.pkl``, from which the word tokenizer is
 rebuilt), the test bank (``test.pkl``) and ``expected.json``: the captions
 the JAX package's ``predict_prompt`` wrote for the test bank, greedy float
-and ``--q8``.
+and ``--q8`` and beam (``--isbeam``) float and ``--q8``.
 
 ``tiny_ase/``: a tiny CLAP model for the encode half (``tests/
 test_torch_extract.py --write-fixture`` regenerates it): ``ase.pt``, a

@@ -1,13 +1,16 @@
-"""Captioner inference/eval CLI, greedy decoding.
+"""Captioner inference/eval CLI, greedy and beam decoding.
 
-The port of the JAX package's ``train/predict_prompt.py`` greedy path: the
-run dir's ``params.json`` rehydrates the model and tokenizer, ``best.pth``
-(the JAX package's msgpack snapshot) loads through the port's own reader,
-the test bank decodes in padded chunks of up to 256 clips (float weights, or
-``--q8`` for w8a8 weights + the int8 KV cache through kernel K1), and the
-run dir gets ``output.txt``, ``scores.txt`` and ``timing.json`` with the JAX
-CLI's contracts. Each prefix slot is also shown as its nearest vocab
-token.
+The port of the JAX package's ``train/predict_prompt.py`` greedy and
+``--isbeam`` paths: the run dir's ``params.json`` rehydrates the model and
+tokenizer, ``best.pth`` (the JAX package's msgpack snapshot) loads through
+the port's own reader, the test bank decodes in padded chunks of up to 256
+clips greedy or 64 clips beam (``--beam_size`` beams, the best one kept;
+float weights, or ``--q8`` for w8a8 weights + the int8 KV cache through
+kernel K1), grouped by the length of their ``--sound_effect`` hard prompt
+(AudioSet labels nearest the clip, "There are a, b, c in this audio."),
+and the run dir gets ``output.txt``, ``scores.txt`` and ``timing.json``
+with the JAX CLI's contracts. Each prefix slot is also shown as its nearest
+vocab token.
 
 Run: ``python -m zs_aac_tpu_torch.train.predict_prompt --test_dir RUN --data test.pkl``
 (``--device cpu`` runs on the CPU; the default is ``cuda``).
@@ -37,10 +40,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sound_effect", default=None)
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--isbeam", action="store_true")
+    p.add_argument("--beam_size", type=int, default=3)
     p.add_argument("--magic", action="store_true")
+    p.add_argument("--alpha", type=float, default=0.1)
+    p.add_argument("--beta", type=float, default=0.2)
+    p.add_argument("--magic_width", type=int, default=25)
+    p.add_argument("--clap_ckpt", default=None, help="ASE checkpoint for MAGIC")
     p.add_argument("--batch", type=int, default=32, help="greedy decode batch size")
     p.add_argument("--q8", action="store_true",
-                   help="serve with int8 weights (w8a8) + int8 KV cache")
+                   help="serve with int8 weights (w8a8) + int8 KV cache (greedy/beam)")
+    p.add_argument("--bf16_softmax", action="store_true",
+                   help="approximate mode: beam attention softmax in bf16")
+    p.add_argument("--q8_tower", action="store_true",
+                   help="approximate mode for --magic: w8a8 CLAP text tower")
     return p
 
 
@@ -84,6 +96,7 @@ def main(argv=None):
     t0 = time.perf_counter()
 
     from zs_aac_tpu_torch.data.datasets import CaptionBankTestDataset, CaptionDatasetConfig
+    from zs_aac_tpu_torch.decoding.beam import beam_search_batched, beam_search_batched_q8
     from zs_aac_tpu_torch.decoding.greedy import greedy_decode, greedy_decode_q8
     from zs_aac_tpu_torch.eval.captioning import eval_prediction
     from zs_aac_tpu_torch.models.caption import CaptionConfig, caption_embeddings
@@ -95,17 +108,19 @@ def main(argv=None):
     device = resolve_device(args.device)
     with open(os.path.join(args.test_dir, "params.json")) as f:
         saved = json.load(f)
-    if args.isbeam:
-        raise NotImplementedError(f"--isbeam (beam search) {_LATER}")
     if args.magic:
         raise NotImplementedError(f"--magic (MAGIC decoding) {_LATER}")
-    if args.sound_effect or saved.get("sound_effect"):
-        raise NotImplementedError(f"--sound_effect (hard prompts) {_LATER}")
+    if args.bf16_softmax:
+        raise NotImplementedError(f"--bf16_softmax (bf16 beam attention softmax) {_LATER}")
+    if args.q8_tower:
+        raise NotImplementedError(f"--q8_tower (MAGIC's int8 text tower) {_LATER}")
 
     tokenizer, stop_id = _make_tokenizer(args.tokenizer or saved.get("tokenizer"),
                                          saved["data"])
     dcfg = CaptionDatasetConfig(prefix_length=saved["prefix_length"],
-                                normalize_prefix=saved.get("normalize_prefix", False))
+                                normalize_prefix=saved.get("normalize_prefix", False),
+                                sound_effect_path=args.sound_effect or saved.get("sound_effect"),
+                                sound_effect_k=3)
     ds = CaptionBankTestDataset(args.data, tokenizer, dcfg)
     key2refs = ds.references()
 
@@ -122,9 +137,10 @@ def main(argv=None):
     )
     params = from_jax_params(load_params(os.path.join(args.test_dir, "best.pth")),
                              device=device)
-    gpt2_serving, decode = params["gpt2"], greedy_decode
+    gpt2_serving, decode_greedy, decode_beam = params["gpt2"], greedy_decode, beam_search_batched
     if args.q8:
-        gpt2_serving, decode = quantize_gpt2_int8(params["gpt2"], "w8a8"), greedy_decode_q8
+        gpt2_serving = quantize_gpt2_int8(params["gpt2"], "w8a8")
+        decode_greedy, decode_beam = greedy_decode_q8, beam_search_batched_q8
 
     # nearest-vocab interpretation of each prefix slot
     wte = params["gpt2"]["wte"].float()
@@ -143,7 +159,7 @@ def main(argv=None):
     groups = defaultdict(list)
     for it in items:
         groups[len(it.get("hard_prompt", ()))].append(it)
-    chunk = min(args.batch, 256)
+    chunk = min(args.batch, 64 if args.isbeam else 256)
     for h, group in groups.items():
         for s in range(0, len(group), chunk):
             part = group[s:s + chunk]
@@ -154,7 +170,14 @@ def main(argv=None):
                   if h else None)
             emb = caption_embeddings(params, ccfg, prefix, hp)
             ptoks = chunk_prefix_tokens(emb)
-            toks, lens = decode(gpt2_serving, ccfg.gpt2, emb, 67, stop_id, 764)
+            if args.isbeam:
+                toks, lens, beam_scores = decode_beam(gpt2_serving, ccfg.gpt2, emb,
+                                                      args.beam_size, 67, stop_id, 1.0)
+                best = beam_scores.argmax(dim=1)   # the first of equal scores, as np.argmax
+                rows = torch.arange(len(padded), device=best.device)
+                toks, lens = toks[rows, best], lens[rows, best]
+            else:
+                toks, lens = decode_greedy(gpt2_serving, ccfg.gpt2, emb, 67, stop_id, 764)
             toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
             for b, it in enumerate(part):
                 key2prefix[it["audio_id"]] = [ptoks[b]]
