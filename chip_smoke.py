@@ -16,8 +16,10 @@ which must pass:
    after each step;
 3. exact captions on learned weights: the port's ``predict_prompt`` on the
    committed tiny captioner (greedy and ``--q8``, beam ``--isbeam`` and
-   ``--isbeam --q8``) reproduces the captions the JAX package recorded, K1
-   launched in the two ``--q8`` modes only;
+   ``--isbeam --q8``, and MAGIC with the committed tiny CLAP checkpoint:
+   ``--magic``, ``--magic --isbeam``, ``--magic --q8``, ``--magic
+   --q8_tower``) reproduces the captions the JAX package recorded, K1
+   launched in the greedy and beam ``--q8`` modes only;
 4. the decode half at full width: CLAP embedding -> MLP mapper
    1024->3840->7680 -> GPT-2 124M (seeded random weights), B=256, Lp=10, 67
    greedy steps, bf16 activations, w8a8 weights + int8 KV cache, every
@@ -95,7 +97,20 @@ which must pass:
     plain path, a ``torch.profiler`` table of one decode's kernels (read off
     the profiler's records: ``profiled_kernels``) with the device's busy
     time, idle share and K1's share, and ``reorder_beam_cache``'s time per
-    decode (CUDA events over the decode's positions) and its share.
+    decode (CUDA events over the decode's positions) and its share;
+15. MAGIC at full width: GPT-2 124M (phase 4's model, bf16 and w8a8) with a
+    bert-base text tower and projection to 1024 (seeded, bf16) and seeded
+    vocabularies of the published sizes (50,257 byte-level BPE tokens,
+    30,522 WordPiece ones). The probe (``gpt2_probe_step``, 25 candidates x
+    64 rows at three indices) held to ``gpt2_step`` on a copy of the cache,
+    fp32 and w8a8; the CLAP log-softmax (incremental and full WordPiece) to
+    float64 from the tower's embeddings; the int8 tower (``--q8_tower``) to
+    the fp32 one (cosine >= 0.98, the JAX package's bound). Greedy MAGIC at
+    B=64 (bf16 and w8a8) and beam MAGIC at 32 clips x 3 beams, width 25, 67
+    steps: captions well formed, no K1 launch, captions/s by a synchronized
+    host clock; a ``torch.profiler`` table of one greedy decode with the
+    device's idle share, and the step's split into the GPT-2 probe and
+    commit, the text tower and the host's tokenization.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -108,6 +123,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 # Tolerances. K1 and its plain version run the same arithmetic in another
 # summation order, so fp32 outputs agree to ~1e-5 of |o| <= 8; in bf16 the
@@ -347,17 +364,25 @@ def phase_k1_vs_plain():
     return worst
 
 
-def phase_fixture_captions():
-    import torch
+# MAGIC on the tiny captioner: the committed tiny CLAP checkpoint; width 5
+# fits its 24-word vocabulary (tests/test_torch_predict.py's MODES)
+FIXTURE_MAGIC = ["--magic", "--magic_width", "5"]
+FIXTURE_MODES = {"greedy": [], "q8": ["--q8"], "beam": ["--isbeam"],
+                 "beam_q8": ["--isbeam", "--q8"], "magic": FIXTURE_MAGIC,
+                 "magic_beam": FIXTURE_MAGIC + ["--isbeam"], "magic_q8": FIXTURE_MAGIC + ["--q8"],
+                 "magic_q8_tower": FIXTURE_MAGIC + ["--q8_tower"]}
 
+
+def phase_fixture_captions():
     from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8
     from zs_aac_tpu_torch.testdata import stage_tiny_captioner
     from zs_aac_tpu_torch.train.predict_prompt import main as predict
 
-    for mode, flags in (("greedy", []), ("q8", ["--q8"]), ("beam", ["--isbeam"]),
-                        ("beam_q8", ["--isbeam", "--q8"])):
+    for mode, flags in FIXTURE_MODES.items():
         with tempfile.TemporaryDirectory() as tmp:
             staged = stage_tiny_captioner(tmp)
+            if mode.startswith("magic"):
+                flags = flags + ["--clap_ckpt", staged["clap_ckpt"]]
             decode_attn_q8.launches = 0
             predict(["--test_dir", staged["run_dir"], "--data", staged["test_bank"],
                      "--device", "cuda"] + flags)
@@ -369,7 +394,10 @@ def phase_fixture_captions():
         print(f"[fixture] predict_prompt {mode} on cuda: {n_same}/{len(want)} captions "
               f"equal to the JAX package's, K1 launches {launches}", flush=True)
         check(got == want, f"{mode} captions differ from the recorded ones")
-        check((launches > 0) == mode.endswith("q8"), f"{mode}: unexpected K1 launches {launches}")
+        # K1 serves the int8 KV cache of greedy and beam --q8; MAGIC's probe
+        # cache stays float under --q8
+        check((launches > 0) == (mode in ("q8", "beam_q8")),
+              f"{mode}: unexpected K1 launches {launches}")
 
 
 def phase_full_width():
@@ -656,6 +684,305 @@ def phase_beam_full_width():
           f"{nbytes / 1e9:.2f} GB read and written, "
           f"{nbytes / (reorder_ms * 1e-3) / 1e12:.2f} TB/s)", flush=True)
     return launches
+
+# -- MAGIC at full width (phase 15) --------------------------------------------
+
+MAGIC_WIDTH, MAGIC_ALPHA, MAGIC_BETA = 25, 0.1, 0.2   # the predict driver's defaults
+# Probe vs a step on a copy of the cache. fp32 (TF32 off): the same products
+# in another summation order, ~1e-5 of |x| <= ~10: 1e-3 absolute on logits
+# and hidden states. w8a8 weights with bf16 activations: the step rounds its
+# attention scores to bf16 before the 1/sqrt(d) scale, the probe scales in
+# fp32, so a bf16 step apart can flip an int8 activation step: logits within
+# LOGIT_TOL (phase 4's bound), hidden states at per-candidate cosine >=
+# COSINE_MIN.
+PROBE_TOL_FP32 = 1e-3
+# The scorer's fp32 log-softmax over the candidates against float64 from the
+# tower's own embeddings: logits |s / 0.07| <= 14.3, fp32 rounding ~1e-6 of it.
+CLAP_TOL = 1e-4
+# The int8 text tower against the fp32 one: the JAX package's bound
+# (tests/test_bert_q8.py).
+Q8_TOWER_COSINE_MIN = 0.98
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def magic_vocabularies(n_lm=50257, n_wp=30522, seed=0):
+    """Seeded stand-ins, at the published sizes, for GPT-2's BPE vocabulary
+    and bert-base-uncased's WordPiece one (neither is in the repo): the 256
+    byte tokens of byte-level BPE in GPT-2's order ('.' is 13), then words of
+    2-9 letters, three in four with a leading space; WordPiece: the special
+    tokens, characters and their '##' forms, then the same words."""
+    import random
+    import string
+
+    from zs_aac_tpu_torch.data.bert_tokenizer import WordPieceTokenizer
+    from zs_aac_tpu_torch.data.tokenizer import GPT2BPETokenizer, _bytes_to_unicode
+
+    rng = random.Random(seed)
+    byte_chars = list(_bytes_to_unicode().values())
+    words, seen = [], set()
+    while len(words) < n_lm - len(byte_chars):
+        w = "".join(rng.choice(string.ascii_lowercase) for _ in range(rng.randint(2, 9)))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    space = _bytes_to_unicode()[ord(" ")]
+    lm_tokens = byte_chars + [space + w if i % 4 else w for i, w in enumerate(words)]
+    lm = GPT2BPETokenizer({t: i for i, t in enumerate(lm_tokens)}, [])
+    chars = list(string.ascii_lowercase + string.digits + string.punctuation)
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars + ["##" + c for c in chars]
+    return lm, WordPieceTokenizer(vocab + words[: n_wp - len(vocab)])
+
+
+def magic_text_tower(text_model, embed_size, device, seed=0):
+    """Seeded ASE text-side variables: the text model's BERT and the
+    Linear-ReLU-Linear projection to ``embed_size``, fp32."""
+    import torch
+
+    from zs_aac_tpu_torch.models.ase import text_config
+    from zs_aac_tpu_torch.models.bert import init_bert
+
+    g = torch.Generator().manual_seed(seed)
+    bcfg = text_config(text_model)
+
+    def dense(i, o):
+        return {"kernel": (torch.randn(i, o, generator=g) * i ** -0.5).to(device),
+                "bias": torch.zeros(o, device=device)}
+
+    return {"params": {"text_enc": init_bert(bcfg, g, device),
+                       "text_proj": {"fc1": dense(bcfg.hidden_size, embed_size),
+                                     "fc2": dense(embed_size, embed_size)}}}
+
+
+def magic_probe_check(params, gcfg, emb, steps, indices, width):
+    """Teacher-force a greedy decode of ``emb`` and, at ``indices``, probe the
+    top ``width`` tokens with ``gpt2_probe_step``; each candidate against
+    ``gpt2_step(return_hidden=True)`` on a copy of the cache with that
+    candidate written at the index. Returns (max |logit diff|, max |hidden
+    diff|, least per-candidate hidden cosine, the largest |logit|)."""
+    import torch
+
+    from zs_aac_tpu_torch.decoding.beam import _topk_argmax
+    from zs_aac_tpu_torch.models.gpt2 import (gpt2_embed, gpt2_prefill, gpt2_probe_step,
+                                              gpt2_step, init_kv_cache)
+
+    B, Lp, _ = emb.shape
+    worst = [0.0, 0.0, 1.0, 0.0]
+    with torch.no_grad():
+        cache = init_kv_cache(gcfg, B, Lp + steps, emb.dtype, emb.device)
+        logits, cache = gpt2_prefill(params, gcfg, emb, cache)
+        last = logits[:, -1].float()
+        for index in range(Lp, Lp + steps):
+            if index in indices:
+                top = _topk_argmax(last, width)[1]
+                pl, _, ph = gpt2_probe_step(params, gcfg, gpt2_embed(params, top), cache, index)
+                copy = {k: v.clone() for k, v in cache.items()}
+                for j in range(width):
+                    lj, _, hj = gpt2_step(params, gcfg, gpt2_embed(params, top[:, j]), copy, index,
+                                          return_hidden=True)
+                    h, hj = ph[:, j].float(), hj.float()
+                    cos = (h * hj).sum(-1) / (h.norm(dim=-1) * hj.norm(dim=-1))
+                    worst = [max(worst[0], (pl[:, j] - lj).abs().max().item()),
+                             max(worst[1], (h - hj).abs().max().item()),
+                             min(worst[2], cos.min().item()),
+                             max(worst[3], lj.abs().max().item())]
+            last, cache = gpt2_step(params, gcfg, gpt2_embed(params, last.argmax(-1)), cache,
+                                    index)
+    return worst
+
+
+def magic_clap_check(scorer, encode, lm, audio, width, n_hist, seed=6):
+    """The decode loop's CLAP term (``_ClapTerm``: WordPiece ids built
+    incrementally) and the scorer's ``batched`` (full re-tokenization) on
+    random candidates after ``n_hist`` random committed tokens, each against
+    float64 from the tower's embeddings of the candidates' texts. Returns the
+    larger max |difference|."""
+    import numpy as np
+
+    from zs_aac_tpu_torch.decoding import magic
+
+    B = audio.shape[0]
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(0, lm.vocab_size, (B, n_hist))
+    top = rng.integers(0, lm.vocab_size, (B, width))
+    term = magic._ClapTerm(scorer, audio)
+    check(term.incr is not None, "the CLAP term does not take the incremental path")
+    for b in range(B):
+        for t in hist[b]:
+            term.commit(b, int(t))
+    got = term(top, None)
+    cands = [[list(hist[b]) + [int(t)] for t in top[b]] for b in range(B)]
+    full = scorer.batched(audio, cands)
+    texts = [lm.decode(c) for row in cands for c in row]
+    t = encode(texts).double().cpu().numpy().reshape(B, width, -1)
+    t = t / np.maximum(np.linalg.norm(t, axis=-1, keepdims=True), 1e-12)
+    a = audio.astype(np.float64)
+    a = a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-12)
+    s = np.einsum("bke,be->bk", t, a) / scorer.device.temp
+    s = s - s.max(-1, keepdims=True)
+    ref = s - np.log(np.exp(s).sum(-1, keepdims=True))
+    return max(np.abs(got - ref).max(), np.abs(full - ref).max())
+
+
+def magic_well_formed(captions, steps, stop):
+    """Every caption has at most ``steps`` tokens, holds the stop token only
+    last, and ends with it if it is shorter than ``steps``."""
+    for c in captions:
+        check(0 < len(c) <= steps, f"a caption of {len(c)} tokens")
+        check(stop not in c[:-1], "a caption holds the stop token before its end")
+        check(len(c) == steps or c[-1] == stop, "a caption stopped without the stop token")
+
+
+def phase_magic_full_width():
+    import collections
+
+    import torch
+
+    from zs_aac_tpu_torch.decoding import magic
+    from zs_aac_tpu_torch.models.caption import (CaptionConfig, caption_embeddings,
+                                                 init_caption_model)
+    from zs_aac_tpu_torch.models.convert import cast_floating
+    from zs_aac_tpu_torch.models.gpt2 import GPT2Config, quantize_gpt2_int8
+    from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8
+
+    B, Bb, K, Lp, steps, W = 64, 32, 3, 10, 67, MAGIC_WIDTH
+    cfg = CaptionConfig(prefix_length=Lp, prefix_size=1024, gpt2=GPT2Config())
+    gcfg = cfg.gpt2
+    lm, wp = magic_vocabularies()
+    stop = lm.encode(".")[0]
+    with torch.no_grad():
+        params = init_caption_model(cfg, seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(5)
+        prefix = torch.randn(B, cfg.prefix_size, generator=g, device="cuda")
+        emb32 = caption_embeddings(params, cfg, prefix)
+        gp32 = params["gpt2"]
+        gp = cast_floating(gp32, torch.bfloat16)
+        qp = quantize_gpt2_int8(gp, "w8a8")
+        emb = emb32.to(torch.bfloat16)
+        tower32 = magic_text_tower("bert-base-uncased", 1024, "cuda")
+    audio = prefix.cpu().numpy()   # predict_prompt's CLAP audio embedding: the bank prefix
+    encode = magic.text_encoder(cast_floating(tower32, torch.bfloat16), "bert-base-uncased", wp,
+                                dtype=torch.bfloat16)
+    scorer = magic.make_magic_scorer(None, lm, encode_text_fn=encode)
+    print(f"[magic] GPT-2 124M (bf16 and w8a8), MLP mapper 1024->3840->7680, Lp={Lp}; "
+          f"bert-base text tower (bf16) + projection to 1024; vocabularies {lm.vocab_size} "
+          f"BPE / {len(wp.itos)} WordPiece (seeded); stop token {stop}", flush=True)
+
+    # the probe against the step, fp32 and w8a8
+    t0 = time.perf_counter()
+    indices = (Lp, Lp + 30, Lp + steps - 1)
+    e32 = magic_probe_check(gp32, gcfg, emb32, steps, indices, W)
+    e8 = magic_probe_check(qp, gcfg, emb, steps, indices, W)
+    print(f"[magic] probe vs step on a copy, {W} candidates x {B} rows at indices {indices}: "
+          f"fp32 max|logit diff| {e32[0]:.3g}, max|hidden diff| {e32[1]:.3g} (tol "
+          f"{PROBE_TOL_FP32}); w8a8 + bf16 max|logit diff| {e8[0]:.4g} (tol {LOGIT_TOL}; "
+          f"max|logit| {e8[3]:.3g}), max|hidden diff| {e8[1]:.4g}, least hidden cosine "
+          f"{e8[2]:.6f} (min {COSINE_MIN}) [{time.perf_counter() - t0:.1f} s]", flush=True)
+    check(max(e32[0], e32[1]) <= PROBE_TOL_FP32, "fp32 probe differs from the step")
+    check(e8[0] <= LOGIT_TOL and e8[2] >= COSINE_MIN, "w8a8 probe differs from the step")
+
+    # the CLAP term against float64, early (short texts) and late (truncated)
+    errs = [magic_clap_check(scorer, encode, lm, audio, W, n) for n in (0, 40)]
+    print(f"[magic] CLAP log-softmax over {W} candidates x {B} clips vs float64 from the "
+          f"tower's embeddings: max|diff| {errs[0]:.3g} (no history), {errs[1]:.3g} "
+          f"(40 tokens; incremental and full re-tokenization; tol {CLAP_TOL})", flush=True)
+    check(max(errs) <= CLAP_TOL, "the CLAP term differs from its float64 recomputation")
+
+    # the int8 text tower against the fp32 one
+    rng = np.random.default_rng(7)
+    texts = [lm.decode(list(rng.integers(0, lm.vocab_size, n)))
+             for n in rng.integers(1, 40, 256)]
+    ref = magic.text_encoder(tower32, "bert-base-uncased", wp)(texts)
+    q8 = magic.text_encoder(tower32, "bert-base-uncased", wp, q8_tower=True)(texts)
+    cos_q8 = (q8 * ref).sum(-1).min().item()
+    cos_bf16 = (encode(texts).float() * ref).sum(-1).min().item()
+    print(f"[magic] text tower on 256 texts: int8 (--q8_tower) vs fp32 least cosine "
+          f"{cos_q8:.5f} (min {Q8_TOWER_COSINE_MIN}); bf16 vs fp32 {cos_bf16:.5f} "
+          f"(information)", flush=True)
+    check(cos_q8 >= Q8_TOWER_COSINE_MIN, "the int8 text tower is off the float one")
+    del tower32, ref, q8
+
+    # the decodes: greedy float and w8a8 (B=64), beam (32 x 3); captions/s
+    def greedy(p, n=steps):
+        return magic.magic_search_batched(p, gcfg, emb, audio, scorer, W, MAGIC_ALPHA,
+                                          MAGIC_BETA, n, stop)
+
+    def beam(n=steps):
+        cands, scores = magic.generate_beam_magic_batched(
+            gp, gcfg, emb[:Bb], audio[:Bb], scorer, K, W, MAGIC_ALPHA, MAGIC_BETA, n, stop)
+        check(np.isfinite(scores).all(), "beam MAGIC scores not finite")
+        return [c for beams in cands for c in beams]
+
+    rates = {}
+    for name, fn, clips in (("greedy bf16", lambda n=steps: greedy(gp, n), B),
+                            ("greedy w8a8 (--q8)", lambda n=steps: greedy(qp, n), B),
+                            ("beam bf16 (--isbeam)", beam, Bb)):
+        fn(3)                                   # warm-up: cuBLAS handles, allocator
+        sync("cuda")
+        decode_attn_q8.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync("cuda")
+        wall = time.perf_counter() - t0
+        magic_well_formed(out, steps, stop)
+        lengths = [len(c) for c in out]
+        rates[name] = clips / wall
+        print(f"[magic] {name}: {clips} clips in {wall * 1e3:.1f} ms -> {rates[name]:.2f} "
+              f"captions/s; lengths min/max {min(lengths)}/{max(lengths)}; K1 launches "
+              f"{decode_attn_q8.launches}", flush=True)
+        check(decode_attn_q8.launches == 0, f"{name}: MAGIC launched K1")
+
+    # the device's idle share over one greedy decode
+    pwall, kernels = profiled_kernels(lambda: greedy(gp))
+    dev_ms = sum(ms for ms, _ in kernels.values())
+    print(f"[magic] one greedy bf16 decode under torch.profiler: wall {pwall:.1f} ms, device "
+          f"busy {dev_ms:.1f} ms, idle {1 - dev_ms / pwall:.1%}", flush=True)
+    print(f"{'device ms':>10} {'share':>6} {'calls':>6} {'us/call':>8}  kernel", flush=True)
+    for kname, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"{ms:10.2f} {ms / dev_ms:6.1%} {n:6d} {ms / n * 1e3:8.2f}  {kname[:100]}",
+              flush=True)
+
+    # the split of a greedy step: each part timed between synchronizations
+    split = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            sync("cuda")
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync("cuda")
+            split[name] += time.perf_counter() - t
+            return out
+        return run
+
+    saved = (magic._probe_step, magic._commit, magic._ClapTerm.__call__,
+             scorer.device.encode_ids)
+    magic._probe_step = timed("probe", magic._probe_step)
+    magic._commit = timed("commit", magic._commit)
+    magic._ClapTerm.__call__ = timed("clap", magic._ClapTerm.__call__)
+    scorer.device.encode_ids = timed("tower", scorer.device.encode_ids)
+    try:
+        t0 = time.perf_counter()
+        greedy(gp)
+        sync("cuda")
+        total = time.perf_counter() - t0
+    finally:
+        (magic._probe_step, magic._commit, magic._ClapTerm.__call__,
+         scorer.device.encode_ids) = saved
+    parts = {"GPT-2 probe + commit": split["probe"] + split["commit"],
+             "text tower": split["tower"],
+             "host detokenize + WordPiece + CLAP log-softmax": split["clap"] - split["tower"]}
+    parts["selection and the rest"] = total - sum(parts.values())
+    print(f"[magic] greedy bf16 decode split (synchronized, {total * 1e3:.1f} ms in all): "
+          + "; ".join(f"{k} {v * 1e3:.1f} ms ({v / total:.1%})" for k, v in parts.items()),
+          flush=True)
+    return rates
+
 
 # -- the encode half ----------------------------------------------------------
 
@@ -1639,6 +1966,7 @@ def main():
     phase_drivers()
     train_launches, train = phase_train_full_width()
     beam_launches = phase_beam_full_width()
+    phase_magic_full_width()
 
     kernels = [{
         "name": "decode_attn_q8",

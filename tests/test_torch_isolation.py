@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import zs_aac_tpu_torch
+from zs_aac_tpu_torch.decoding import magic
 from zs_aac_tpu_torch.models import ase, bert, caption, convert, gpt2, htsat, mapper
 from zs_aac_tpu_torch.pipeline import extract
 from zs_aac_tpu_torch.train import contrastive, finetune, optim, predict_prompt, pretrain
@@ -80,6 +81,8 @@ ENTRY_POINTS = {
     "make_ase_train_step": (contrastive.make_ase_train_step,
                             lambda: contrastive.make_ase_train_step(ase.ASE(_HTSAT_ASE), _ADAM)),
     "pretrain.run": (pretrain.run, lambda: pretrain.run({})),
+    "make_magic_scorer": (magic.make_magic_scorer,
+                          lambda: magic.make_magic_scorer("ase.msgpack", None)),
 }
 
 
@@ -100,7 +103,7 @@ def test_predict_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
         predict_prompt.main(["--test_dir", str(tmp_path), "--data", "none.pkl"])
 
 
-@pytest.mark.parametrize("flag", ["--bf16_softmax", "--magic", "--q8_tower"])
+@pytest.mark.parametrize("flag", ["--bf16_softmax"])
 def test_predict_later_slices_raise(flag, tmp_path):
     (tmp_path / "params.json").write_text('{"data": [], "prefix_length": 4}')
     with pytest.raises(NotImplementedError, match="later slice"):

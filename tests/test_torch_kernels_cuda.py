@@ -131,6 +131,49 @@ def test_q8_step_kernel_path_matches_plain_path():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q8", [False, True], ids=["float_cache", "q8_cache"])
+def test_magic_probe_matches_step_on_a_copy(q8):
+    """MAGIC's probe on the card (fp32, TF32 off): each of W=7 candidates'
+    logits and hidden state equal ``gpt2_step``'s with that candidate written
+    at ``index`` of a copy of the cache, within 1e-4 (summation order); over
+    the int8 cache the same against the dequantized cache's float step
+    (``gpt2_probe_step_q8`` reads ``k8 * scale``, as the step reads the
+    dequantized rows), within 1e-4. No K1 launch."""
+    _need_cuda()
+    from zs_aac_tpu_torch.models.gpt2 import (GPT2Config, gpt2_commit_probe, gpt2_embed,
+                                              gpt2_prefill, gpt2_probe_step,
+                                              gpt2_probe_step_q8, gpt2_step, init_gpt2,
+                                              init_kv_cache, quantize_kv_cache)
+
+    cfg = GPT2Config(vocab_size=101, n_positions=64, n_embd=128, n_layer=2, n_head=4)
+    params = init_gpt2(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, Lp, W = 5, 6, 7
+    emb = torch.randn(B, Lp, 128, generator=g, device="cuda")
+    cache = init_kv_cache(cfg, B, 16, device="cuda")
+    before = decode_attn_q8.launches
+    with torch.no_grad():
+        gpt2_prefill(params, cfg, emb, cache)
+        for index in range(Lp, Lp + 4):
+            ids = torch.randint(0, 101, (B, W), generator=g, device="cuda")
+            x = gpt2_embed(params, ids)
+            if q8:
+                qc = quantize_kv_cache(cache)
+                logits, kv, hidden = gpt2_probe_step_q8(params, cfg, x, qc, index)
+                ref = {n: (qc[n].float() * qc[n + "_scale"][..., None]) for n in ("k", "v")}
+            else:
+                logits, kv, hidden = gpt2_probe_step(params, cfg, x, cache, index)
+                ref = cache
+            for j in range(W):
+                copy = {n: t.clone() for n, t in ref.items()}
+                lj, _, hj = gpt2_step(params, cfg, x[:, j], copy, index, return_hidden=True)
+                torch.testing.assert_close(logits[:, j], lj, atol=1e-4, rtol=0)
+                torch.testing.assert_close(hidden[:, j], hj, atol=1e-4, rtol=0)
+            gpt2_commit_probe(cache, kv, torch.zeros(B, dtype=torch.int64, device="cuda"), index)
+    assert decode_attn_q8.launches == before
+
+
+@pytest.mark.cuda
 def test_q8_beam_through_k1_matches_plain_path():
     """The int8-cache beam search on a small random GPT-2 (fp32) launches K1
     n_layer times a step at B*K rows; step-locked on its own tokens and beam

@@ -74,8 +74,17 @@ def make_tiny_run(root):
     return run_dir, train_bank, test_bank
 
 
-# the decode modes of the fixture and their flags
-MODES = {"greedy": [], "q8": ["--q8"], "beam": ["--isbeam"], "beam_q8": ["--isbeam", "--q8"]}
+# the decode modes of the fixture and their flags; MAGIC's CLAP checkpoint is
+# the committed tiny one (staged by ``stage_tiny_captioner``), and its width 5
+# fits the tiny captioner's 24-word vocabulary
+MAGIC = ["--magic", "--magic_width", "5"]
+MODES = {"greedy": [], "q8": ["--q8"], "beam": ["--isbeam"], "beam_q8": ["--isbeam", "--q8"],
+         "magic": MAGIC, "magic_beam": MAGIC + ["--isbeam"], "magic_q8": MAGIC + ["--q8"],
+         "magic_q8_tower": MAGIC + ["--q8_tower"]}
+
+
+def _mode_flags(mode, clap_ckpt):
+    return MODES[mode] + (["--clap_ckpt", clap_ckpt] if mode.startswith("magic") else [])
 
 
 def _jax_predict(run_dir, bank, flags):
@@ -106,6 +115,15 @@ def fresh_run(tmp_path_factory):
     return make_tiny_run(str(tmp_path_factory.mktemp("tiny_run")))
 
 
+@pytest.fixture
+def jax_knows_the_tiny_bert(monkeypatch):
+    """The tiny CLAP checkpoint's text model, ``bert-tiny-test``, is in the
+    port's registry only."""
+    from test_torch_bert_ase import register_tiny_bert_in_jax
+
+    register_tiny_bert_in_jax(monkeypatch.setitem)
+
+
 def _both_predict(run_dir, test_bank, tmp_path, flags):
     runs = {}
     for side, predict in (("jax", _jax_predict), ("port", _port_predict)):
@@ -116,9 +134,10 @@ def _both_predict(run_dir, test_bank, tmp_path, flags):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_predict_outputs_identical_to_jax(fresh_run, tmp_path, mode):
+def test_predict_outputs_identical_to_jax(fresh_run, tmp_path, mode, jax_knows_the_tiny_bert):
     run_dir, _, test_bank = fresh_run
-    runs = _both_predict(run_dir, test_bank, tmp_path, MODES[mode])
+    clap = stage_tiny_captioner(tmp_path / "fixture")["clap_ckpt"]
+    runs = _both_predict(run_dir, test_bank, tmp_path, _mode_flags(mode, clap))
     jax_preds, jax_scores = _outputs(runs["jax"])
     port_preds, port_scores = _outputs(runs["port"])
     assert len(port_preds) == 12
@@ -131,10 +150,10 @@ def test_predict_outputs_identical_to_jax(fresh_run, tmp_path, mode):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_committed_fixture_captions(tmp_path, mode):
+def test_committed_fixture_captions(tmp_path, mode, jax_knows_the_tiny_bert):
     for side, predict in (("jax", _jax_predict), ("port", _port_predict)):
         staged = stage_tiny_captioner(tmp_path / side)
-        predict(staged["run_dir"], staged["test_bank"], MODES[mode])
+        predict(staged["run_dir"], staged["test_bank"], _mode_flags(mode, staged["clap_ckpt"]))
         assert _captions(staged["run_dir"]) == staged["expected"][mode], side
     assert set(staged["expected"][mode].values()) == set(CAPTIONS)
 
@@ -166,6 +185,28 @@ def test_sound_effect_outputs_identical_to_jax(fresh_run, tmp_path, mode):
     assert len(port_preds) == 12
     assert port_preds == jax_preds
     assert port_scores == jax_scores
+
+
+@pytest.mark.parametrize("flags,chunks", [(["--batch", "512"], [256, 44]),
+                                          (["--batch", "256", "--isbeam"], [64, 64, 64, 64, 44])])
+def test_timing_counts_the_clips_each_chunk_held(tmp_path, flags, chunks):
+    """``timing.json``'s steady clips/s counts each timed chunk's clips
+    (greedy chunks hold at most 256, beam 64), not ``--batch`` clips."""
+    import pickle
+
+    staged = stage_tiny_captioner(tmp_path)
+    with open(staged["test_bank"], "rb") as f:
+        records = pickle.load(f)
+    bank = str(tmp_path / "big.pkl")
+    with open(bank, "wb") as f:
+        pickle.dump([dict(r, audio_id=f"{r['audio_id']}_{i}")
+                     for i in range(25) for r in records], f)    # 300 clips
+    _port_predict(staged["run_dir"], bank, flags)
+    with open(os.path.join(staged["run_dir"], "timing.json")) as f:
+        timing = json.load(f)
+    assert timing["n_clips"] == 300 and timing["chunk_clips"] == chunks
+    walls = timing["chunk_walls_s"]
+    assert timing["decode_steady_clips_per_s"] == round(sum(chunks[1:]) / sum(walls[1:]), 1)
 
 
 def test_parser_takes_every_option_of_the_jax_parser(tmp_path):
@@ -220,10 +261,11 @@ def write_fixture():
     with tempfile.TemporaryDirectory() as tmp:
         run_dir, train_bank, test_bank = make_tiny_run(tmp)
         expected = {}
-        for mode, flags in MODES.items():
+        clap = stage_tiny_captioner(os.path.join(tmp, "fixture"))["clap_ckpt"]
+        for mode in MODES:
             d = os.path.join(tmp, mode)
             shutil.copytree(run_dir, d)
-            _jax_predict(d, test_bank, flags)
+            _jax_predict(d, test_bank, _mode_flags(mode, clap))
             expected[mode] = _captions(d)
         out = FIXTURE_DIR
         os.makedirs(out, exist_ok=True)
@@ -245,6 +287,10 @@ def write_fixture():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--write-fixture"]:
         os.environ["JAX_PLATFORMS"] = "cpu"
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from test_torch_bert_ase import register_tiny_bert_in_jax
+
+        register_tiny_bert_in_jax(lambda d, k, v: d.__setitem__(k, v))
         write_fixture()
     else:
         sys.exit("usage: PYTHONPATH=. python tests/test_torch_predict.py --write-fixture")

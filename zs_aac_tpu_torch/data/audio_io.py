@@ -24,37 +24,51 @@ import numpy as np
 __all__ = ["load_wav", "resample", "load_audio", "load_audio_raw", "pad_or_truncate", "random_crop"]
 
 _NATIVE = None
+_LIB_PATH = os.path.join(os.path.dirname(__file__), "..", "native", "libaudioio.so")
 
 
 def _native_lib():
-    """Load the optional C++ decoder (built by ``native/build.sh``)."""
+    """The optional C++ decoder, or None where it cannot be built or loaded."""
     global _NATIVE
     if _NATIVE is None:
-        import ctypes
-
-        path = os.path.join(os.path.dirname(__file__), "..", "native", "libaudioio.so")
-        if not os.path.exists(path):
-            # the .so is gitignored — build it on first use so a fresh
-            # clone behaves like a built tree (g++ is part of the image;
-            # ~2 s). Failures fall through to the pure-python path.
-            import subprocess
-
-            build = os.path.join(os.path.dirname(path), "build.sh")
-            try:
-                subprocess.run(["sh", build], capture_output=True, timeout=120)
-            except Exception:
-                pass
-        if os.path.exists(path):
-            lib = ctypes.CDLL(path)
-            lib.decode_wav_resample.restype = ctypes.c_long
-            lib.decode_wav_resample.argtypes = [
-                ctypes.c_char_p, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float), ctypes.c_long,
-            ]
-            _NATIVE = lib
-        else:
-            _NATIVE = False
+        _NATIVE = _load_native(_LIB_PATH) or False
     return _NATIVE or None
+
+
+def _load_native(path: str):
+    """Build the library at ``path`` if it is missing (the .so is
+    gitignored; ``native/build.sh`` compiles to a temporary name and renames
+    it into place, so a concurrent reader never sees half a file), then load
+    it. A failed build or load is reported on stderr and gives None: the
+    pure-Python decoder is used instead."""
+    import ctypes
+    import subprocess
+    import sys
+
+    if not os.path.exists(path):
+        build = os.path.join(os.path.dirname(path), "build.sh")
+        try:
+            out = subprocess.run(["sh", build], capture_output=True, text=True, timeout=120)
+        except (OSError, subprocess.SubprocessError) as e:
+            print(f"audio_io: cannot build the native decoder ({e}); "
+                  "using the Python decoder", file=sys.stderr)
+            return None
+        if out.returncode != 0:
+            print(f"audio_io: native decoder build failed (exit {out.returncode}); using "
+                  f"the Python decoder\n{out.stdout}{out.stderr}", file=sys.stderr)
+            return None
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError as e:
+        print(f"audio_io: cannot load {path} ({e}); using the Python decoder",
+              file=sys.stderr)
+        return None
+    lib.decode_wav_resample.restype = ctypes.c_long
+    lib.decode_wav_resample.argtypes = [
+        ctypes.c_char_p, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+    ]
+    return lib
 
 
 def load_wav(path: str) -> Tuple[np.ndarray, int]:

@@ -26,8 +26,8 @@ from zs_aac_tpu_torch.models.bert import BertConfig, BertEncoder, init_bert
 from zs_aac_tpu_torch.models.htsat import HTSAT
 from zs_aac_tpu_torch.utils.device import resolve_device
 
-__all__ = ["ASEConfig", "ASE", "TEXT_MODEL_REGISTRY", "text_config", "init_ase",
-           "atc_loss", "ntxent_loss"]
+__all__ = ["ASEConfig", "ASE", "TEXT_MODEL_REGISTRY", "CLIP_TEXT_MODELS", "GPT2_TEXT_MODELS",
+           "text_config", "init_ase", "atc_loss", "ntxent_loss"]
 
 
 # name -> BertConfig kwargs (the JAX package's registry, itself the reference
@@ -63,9 +63,11 @@ TEXT_MODEL_REGISTRY = {
                            max_position_embeddings=32),  # tests
 }
 
-# Text towers of the JAX package that are not ported yet.
-_LATER_TEXT_TOWERS = {"openai/clip-vit-base-patch32", "clip-tiny", "gpt2", "distilgpt2",
-                      "gpt2-tiny"}
+# Text towers of the JAX package that are not ported yet: its CLIP and GPT-2
+# registries.
+CLIP_TEXT_MODELS = {"openai/clip-vit-base-patch32", "clip-tiny"}
+GPT2_TEXT_MODELS = {"gpt2", "distilgpt2", "gpt2-tiny"}
+_LATER_TEXT_TOWERS = CLIP_TEXT_MODELS | GPT2_TEXT_MODELS
 
 
 def text_config(name: str) -> BertConfig:

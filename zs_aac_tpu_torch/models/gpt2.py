@@ -46,6 +46,10 @@ __all__ = [
     "init_kv_cache",
     "gpt2_prefill",
     "gpt2_step",
+    "gpt2_probe_step",
+    "gpt2_probe_step_q8",
+    "gpt2_commit_probe",
+    "gpt2_commit_probe_q8",
     "quantize_gpt2_int8",
     "init_kv_cache_q8",
     "quantize_kv_cache",
@@ -197,9 +201,11 @@ def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def gpt2_prefill(params, cfg: GPT2Config, inputs_embeds, cache):
+def gpt2_prefill(params, cfg: GPT2Config, inputs_embeds, cache, return_hidden=False):
     """Run the prompt, filling ``cache[:, :, :, :L]`` (rows past L are
-    zeroed) in place. Returns (logits [B, L, vocab], cache)."""
+    zeroed) in place. Returns (logits [B, L, vocab], cache), plus the
+    post-``ln_f`` hidden states [B, L, D] when ``return_hidden`` (MAGIC's
+    degeneration penalty reads them)."""
     B, L, D = inputs_embeds.shape
     x = inputs_embeds + params["wpe"][:L][None]
     bias = _causal_bias(L, x.dtype, x.device)
@@ -209,14 +215,17 @@ def gpt2_prefill(params, cfg: GPT2Config, inputs_embeds, cache):
             cache[name][i, :, :, :L] = t
             cache[name][i, :, :, L:] = 0
     x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
+    if return_hidden:
+        return _logits(x, params), cache, x
     return _logits(x, params), cache
 
 
-def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int):
+def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int, return_hidden=False):
     """One cached decode step for the token at position ``index``.
 
     ``x_embed``: [B, D]. Writes the token's k/v into the cache in place and
-    returns (logits [B, vocab] fp32, cache)."""
+    returns (logits [B, vocab] fp32, cache), plus the post-``ln_f`` hidden
+    state [B, D] when ``return_hidden``."""
     x = (x_embed + params["wpe"][index])[:, None]
     d = cfg.n_embd // cfg.n_head
     n = index + 1
@@ -233,7 +242,108 @@ def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int):
         x = x + _mm(_merge_heads(o), blk["attn"]["c_proj"])
         x = _mlp_residual(blk, cfg, x)
     x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
-    return _logits(x, params)[:, 0].float(), cache
+    logits = _logits(x, params)[:, 0].float()
+    if return_hidden:
+        return logits, cache, x[:, 0]
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Probe steps (MAGIC): W candidate tokens per cache row
+# ---------------------------------------------------------------------------
+
+
+def _probe(params, cfg: GPT2Config, x_embed, cache, index: int, history):
+    """The probe step over any cache layout. ``history(i, q)`` -> (the
+    scores of ``q`` [B, H, W, d] against layer ``i``'s rows ``0..index-1``
+    [B, H, W, index], a function of the softmax weights of those rows giving
+    their value sum [B, H, W, d])."""
+    B, W, D = x_embed.shape
+    H = cfg.n_head
+    d = D // H
+    x = (x_embed + params["wpe"][index]).reshape(B * W, 1, D)
+    ks_new, vs_new = [], []
+    for i, blk in enumerate(params["h"]):
+        h = _ln(x, blk["ln_1"], cfg.layer_norm_epsilon)
+        q, k, v = (t.reshape(B, W, H, d).transpose(1, 2)            # [B, H, W, d]
+                   for t in _mm(h, blk["attn"]["c_attn"]).split(D, dim=-1))
+        ks_new.append(k)
+        vs_new.append(v)
+        s_hist, value_sum = history(i, q)
+        s_own = (q[..., None, :] @ k[..., :, None])[..., 0]         # own token at index
+        s = torch.cat([s_hist.float(), s_own.float()], dim=-1)
+        att = torch.softmax(div(s, math.sqrt(d)), dim=-1).to(x.dtype)
+        o = value_sum(att[..., :index]) + att[..., index:] * v
+        x = x + _mm(o.transpose(1, 2).reshape(B * W, 1, D), blk["attn"]["c_proj"])
+        x = _mlp_residual(blk, cfg, x)
+    x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
+    logits = _logits(x, params)[:, 0].float().reshape(B, W, -1)
+    k_new = torch.stack(ks_new).transpose(2, 3)                      # [L, B, W, H, d]
+    v_new = torch.stack(vs_new).transpose(2, 3)
+    return logits, (k_new, v_new), x.reshape(B, W, D)
+
+
+def gpt2_probe_step(params, cfg: GPT2Config, x_embed, cache, index: int):
+    """Probe ``W`` candidate tokens per cache row without copying the cache
+    (the JAX ``gpt2_probe_step``): the W queries of a row attend over the
+    row's cached positions ``0..index-1`` plus each candidate's own k/v at
+    ``index``; nothing is written. The JAX version masks positions from
+    ``index`` on to -1e9 (an exact 0 weight); here they are not read.
+
+    ``x_embed``: [B, W, D]; ``cache`` leaves [n_layer, B, H, T, d]. Returns
+    (logits [B, W, V] fp32, (k_new, v_new) each [n_layer, B, W, H, d],
+    hidden [B, W, D] after ``ln_f``); ``gpt2_commit_probe`` writes a chosen
+    candidate's k/v."""
+    dt = x_embed.dtype
+
+    def history(i, q):
+        kc = cache["k"][i][:, :, :index].to(dt)
+        vc = cache["v"][i][:, :, :index].to(dt)
+        return q @ kc.transpose(-1, -2), lambda att: att @ vc
+
+    return _probe(params, cfg, x_embed, cache, index, history)
+
+
+def gpt2_probe_step_q8(params, cfg: GPT2Config, x_embed, cache, index: int):
+    """``gpt2_probe_step`` over the int8 KV cache and its scales (the JAX
+    ``gpt2_probe_step_q8``): the history's scores are ``q . k8 * k_scale``
+    and its value sum ``(p * v_scale) . v8``, in the activation dtype; the
+    candidates' own k/v stay in full precision."""
+    dt = x_embed.dtype
+
+    def history(i, q):
+        kc = cache["k"][i][:, :, :index].to(dt)
+        vc = cache["v"][i][:, :, :index].to(dt)
+        sk = cache["k_scale"][i][:, :, None, :index].to(dt)
+        sv = cache["v_scale"][i][:, :, None, :index].to(dt)
+        return (q @ kc.transpose(-1, -2)) * sk, lambda att: (att * sv) @ vc
+
+    return _probe(params, cfg, x_embed, cache, index, history)
+
+
+def _selected(new_kv, sel):
+    """Each row's selected candidate k/v: [n_layer, B, H, d] each."""
+    rows = torch.arange(sel.shape[0], device=sel.device)
+    return tuple(t[:, rows, sel] for t in new_kv)
+
+
+def gpt2_commit_probe(cache, new_kv, sel, index: int):
+    """Write each row's selected candidate k/v (``sel`` [B], from
+    ``gpt2_probe_step``) into the cache at ``index``, in place."""
+    for name, t in zip(("k", "v"), _selected(new_kv, sel)):
+        cache[name][:, :, :, index] = t
+    return cache
+
+
+def gpt2_commit_probe_q8(cache, new_kv, sel, index: int):
+    """Quantize each row's selected candidate k/v (``quantize_vec``, the
+    quantization kernel K1 commits) and write values and scales into the
+    int8 cache at ``index``, in place."""
+    for name, t in zip(("k", "v"), _selected(new_kv, sel)):
+        q, scale = quantize_vec(t.float())
+        cache[name][:, :, :, index] = q
+        cache[name + "_scale"][:, :, :, index] = scale
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ CLIs (``tests/test_torch_predict.py`` regenerates it with
 training bank's captions (``train.pkl``, from which the word tokenizer is
 rebuilt), the test bank (``test.pkl``) and ``expected.json``: the captions
 the JAX package's ``predict_prompt`` wrote for the test bank, greedy float
-and ``--q8`` and beam (``--isbeam``) float and ``--q8``.
+and ``--q8``, beam (``--isbeam``) float and ``--q8``, and MAGIC
+(``--magic --magic_width 5`` with the tiny CLAP checkpoint below: alone,
+``--isbeam``, ``--q8``, ``--q8_tower``; ``tests/test_torch_magic.py
+--write-fixture`` records these four on the committed ``best.pth``).
 
 ``tiny_ase/``: a tiny CLAP model for the encode half (``tests/
 test_torch_extract.py --write-fixture`` regenerates it): ``ase.pt``, a
@@ -34,7 +37,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["FIXTURE_DIR", "TINY_ASE_DIR", "stage_tiny_captioner", "stage_tiny_ase",
+__all__ = ["FIXTURE_DIR", "TINY_ASE_DIR", "TINY_CLAP_DIR", "stage_tiny_captioner", "stage_tiny_ase",
            "train_batch", "checksums", "TRAIN_STEPS", "TRAIN_OPTIM"]
 
 # the recorded train run: Adam under a clip of the global norm at 2, cosine
@@ -44,12 +47,14 @@ TRAIN_OPTIM = {"lr": 1e-3, "warmup": 1, "clip": 2.0, "optimizer": "adam"}
 
 FIXTURE_DIR = Path(__file__).resolve().parent / "tiny_captioner"
 TINY_ASE_DIR = Path(__file__).resolve().parent / "tiny_ase"
+TINY_CLAP_DIR = Path(__file__).resolve().parent / "tiny_clap"
 
 
 def stage_tiny_captioner(dst) -> dict:
     """Copy the fixture into ``dst`` as a run dir plus banks, with the
-    recorded training-bank path pointed at the copy. Returns {"run_dir",
-    "test_bank", "expected"}."""
+    recorded training-bank path pointed at the copy, and the tiny CLAP
+    checkpoint with its sidecar's vocabulary pointed at a copy. Returns
+    {"run_dir", "test_bank", "clap_ckpt", "expected"}."""
     dst = Path(dst)
     run = dst / "run"
     run.mkdir(parents=True, exist_ok=True)
@@ -59,7 +64,15 @@ def stage_tiny_captioner(dst) -> dict:
     params = json.loads((FIXTURE_DIR / "params.json").read_text())
     params["data"] = [str(dst / "train.pkl")]
     (run / "params.json").write_text(json.dumps(params))
+    clap = dst / "clap"
+    clap.mkdir(exist_ok=True)
+    for name in ("ase.msgpack", "vocab.txt"):
+        shutil.copy(TINY_CLAP_DIR / name, clap / name)
+    sidecar = json.loads((TINY_CLAP_DIR / "ase.msgpack.json").read_text())
+    sidecar["bert_tokenizer"] = str(clap / sidecar["bert_tokenizer"])
+    (clap / "ase.msgpack.json").write_text(json.dumps(sidecar))
     return {"run_dir": str(run), "test_bank": str(dst / "test.pkl"),
+            "clap_ckpt": str(clap / "ase.msgpack"),
             "expected": json.loads((FIXTURE_DIR / "expected.json").read_text())}
 
 

@@ -1,16 +1,25 @@
-"""Captioner inference/eval CLI, greedy and beam decoding.
+"""Captioner inference/eval CLI: greedy, beam and MAGIC decoding.
 
-The port of the JAX package's ``train/predict_prompt.py`` greedy and
-``--isbeam`` paths: the run dir's ``params.json`` rehydrates the model and
-tokenizer, ``best.pth`` (the JAX package's msgpack snapshot) loads through
-the port's own reader, the test bank decodes in padded chunks of up to 256
-clips greedy or 64 clips beam (``--beam_size`` beams, the best one kept;
-float weights, or ``--q8`` for w8a8 weights + the int8 KV cache through
-kernel K1), grouped by the length of their ``--sound_effect`` hard prompt
-(AudioSet labels nearest the clip, "There are a, b, c in this audio."),
-and the run dir gets ``output.txt``, ``scores.txt`` and ``timing.json``
-with the JAX CLI's contracts. Each prefix slot is also shown as its nearest
-vocab token.
+The port of the JAX package's ``train/predict_prompt.py``: the run dir's
+``params.json`` rehydrates the model and tokenizer, ``best.pth`` (the JAX
+package's msgpack snapshot) loads through the port's own reader, and the
+test bank decodes in padded chunks, grouped by the length of their
+``--sound_effect`` hard prompt (AudioSet labels nearest the clip, "There are
+a, b, c in this audio."):
+
+- greedy, up to 256 clips a chunk, and beam search (``--isbeam``, up to 64,
+  ``--beam_size`` beams, the best one kept): float weights, or ``--q8`` for
+  w8a8 weights + the int8 KV cache through kernel K1;
+- MAGIC (``--magic``, CLAP-guided, up to 64 clips a chunk; with ``--isbeam``
+  beam MAGIC, up to 32, the best beam kept): each clip's CLAP audio
+  embedding is its bank prefix, the text tower is ``--clap_ckpt``'s
+  (``--q8_tower``: w8a8), ``--q8`` gives w8a8 weights while the probe's
+  cache stays float, so K1 is not launched.
+
+The run dir gets ``output.txt``, ``scores.txt`` and ``timing.json`` with the
+JAX CLI's contracts, except that ``timing.json``'s steady clips/s counts the
+clips each timed chunk held (the JAX CLI multiplies by ``--batch``). Each
+prefix slot is also shown as its nearest vocab token.
 
 Run: ``python -m zs_aac_tpu_torch.train.predict_prompt --test_dir RUN --data test.pkl``
 (``--device cpu`` runs on the CPU; the default is ``cuda``).
@@ -48,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clap_ckpt", default=None, help="ASE checkpoint for MAGIC")
     p.add_argument("--batch", type=int, default=32, help="greedy decode batch size")
     p.add_argument("--q8", action="store_true",
-                   help="serve with int8 weights (w8a8) + int8 KV cache (greedy/beam)")
+                   help="serve with int8 weights (w8a8) + int8 KV cache (greedy/beam); "
+                        "with --magic the probe cache stays float")
     p.add_argument("--bf16_softmax", action="store_true",
                    help="approximate mode: beam attention softmax in bf16")
     p.add_argument("--q8_tower", action="store_true",
@@ -98,6 +108,8 @@ def main(argv=None):
     from zs_aac_tpu_torch.data.datasets import CaptionBankTestDataset, CaptionDatasetConfig
     from zs_aac_tpu_torch.decoding.beam import beam_search_batched, beam_search_batched_q8
     from zs_aac_tpu_torch.decoding.greedy import greedy_decode, greedy_decode_q8
+    from zs_aac_tpu_torch.decoding.magic import (generate_beam_magic_batched,
+                                                 magic_search_batched, make_magic_scorer)
     from zs_aac_tpu_torch.eval.captioning import eval_prediction
     from zs_aac_tpu_torch.models.caption import CaptionConfig, caption_embeddings
     from zs_aac_tpu_torch.models.convert import from_jax_params
@@ -108,12 +120,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     with open(os.path.join(args.test_dir, "params.json")) as f:
         saved = json.load(f)
-    if args.magic:
-        raise NotImplementedError(f"--magic (MAGIC decoding) {_LATER}")
     if args.bf16_softmax:
         raise NotImplementedError(f"--bf16_softmax (bf16 beam attention softmax) {_LATER}")
-    if args.q8_tower:
-        raise NotImplementedError(f"--q8_tower (MAGIC's int8 text tower) {_LATER}")
 
     tokenizer, stop_id = _make_tokenizer(args.tokenizer or saved.get("tokenizer"),
                                          saved["data"])
@@ -141,6 +149,8 @@ def main(argv=None):
     if args.q8:
         gpt2_serving = quantize_gpt2_int8(params["gpt2"], "w8a8")
         decode_greedy, decode_beam = greedy_decode_q8, beam_search_batched_q8
+    magic_score_fn = (make_magic_scorer(args.clap_ckpt, tokenizer, q8_tower=args.q8_tower,
+                                        device=device) if args.magic else None)
 
     # nearest-vocab interpretation of each prefix slot
     wte = params["gpt2"]["wte"].float()
@@ -155,11 +165,14 @@ def main(argv=None):
     key2pred, key2prefix = {}, {}
     items = [ds[i] for i in range(len(ds))]
     t_setup = time.perf_counter()
-    chunk_walls = []
+    chunk_walls, chunk_clips = [], []
     groups = defaultdict(list)
     for it in items:
         groups[len(it.get("hard_prompt", ()))].append(it)
-    chunk = min(args.batch, 64 if args.isbeam else 256)
+    if args.magic:
+        chunk = min(args.batch, 32 if args.isbeam else 64)
+    else:
+        chunk = min(args.batch, 64 if args.isbeam else 256)
     for h, group in groups.items():
         for s in range(0, len(group), chunk):
             part = group[s:s + chunk]
@@ -170,20 +183,34 @@ def main(argv=None):
                   if h else None)
             emb = caption_embeddings(params, ccfg, prefix, hp)
             ptoks = chunk_prefix_tokens(emb)
-            if args.isbeam:
-                toks, lens, beam_scores = decode_beam(gpt2_serving, ccfg.gpt2, emb,
-                                                      args.beam_size, 67, stop_id, 1.0)
-                best = beam_scores.argmax(dim=1)   # the first of equal scores, as np.argmax
-                rows = torch.arange(len(padded), device=best.device)
-                toks, lens = toks[rows, best], lens[rows, best]
+            if args.magic:
+                audio = np.stack([np.asarray(it["prefix"]).reshape(-1) for it in padded])
+                kw = dict(alpha=args.alpha, beta=args.beta, stop_token_id=stop_id)
+                if args.isbeam:
+                    cands, _ = generate_beam_magic_batched(
+                        gpt2_serving, ccfg.gpt2, emb, audio, magic_score_fn,
+                        beam_size=args.beam_size, magic_width=args.magic_width, **kw)
+                    preds = [c[0] for c in cands]
+                else:
+                    preds = magic_search_batched(gpt2_serving, ccfg.gpt2, emb, audio,
+                                                 magic_score_fn, beam_width=args.magic_width,
+                                                 **kw)
             else:
-                toks, lens = decode_greedy(gpt2_serving, ccfg.gpt2, emb, 67, stop_id, 764)
-            toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
+                if args.isbeam:
+                    toks, lens, beam_scores = decode_beam(gpt2_serving, ccfg.gpt2, emb,
+                                                          args.beam_size, 67, stop_id, 1.0)
+                    best = beam_scores.argmax(dim=1)   # the first of equal scores, as np.argmax
+                    rows = torch.arange(len(padded), device=best.device)
+                    toks, lens = toks[rows, best], lens[rows, best]
+                else:
+                    toks, lens = decode_greedy(gpt2_serving, ccfg.gpt2, emb, 67, stop_id, 764)
+                toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
+                preds = [list(toks[b][: int(lens[b])]) for b in range(len(part))]
             for b, it in enumerate(part):
                 key2prefix[it["audio_id"]] = [ptoks[b]]
-                ids = list(toks[b][: int(lens[b])])
-                key2pred[it["audio_id"]] = [tokenizer.decode(ids).lower()]
+                key2pred[it["audio_id"]] = [tokenizer.decode(preds[b]).lower()]
             chunk_walls.append(round(time.perf_counter() - tc, 3))
+            chunk_clips.append(len(part))
 
     t_decode = time.perf_counter()
     scores = eval_prediction(key2refs, key2pred)
@@ -214,9 +241,11 @@ def main(argv=None):
         "setup_s": round(t_setup - t0, 2),
         "decode_s": round(t_decode - t_setup, 2),
         "chunk_walls_s": chunk_walls,
+        "chunk_clips": chunk_clips,
+        # the first chunk carries the warm-up; each later one counts the
+        # clips it held (the last may hold fewer than a chunk)
         "decode_steady_clips_per_s": (
-            round(args.batch * (len(chunk_walls) - 1)
-                  / max(sum(chunk_walls[1:]), 1e-9), 1)
+            round(sum(chunk_clips[1:]) / max(sum(chunk_walls[1:]), 1e-9), 1)
             if len(chunk_walls) > 1 else None),
         "eval_and_write_s": round(t_end - t_decode, 2),
         "total_s": round(t_end - t0, 2),
