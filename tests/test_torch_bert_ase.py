@@ -182,12 +182,6 @@ def test_init_ase_tree_matches_jax_init(tiny_registry):
     assert shapes(jax.tree.map(lambda t: t.numpy(), got)) == shapes(ref)
 
 
-@pytest.mark.parametrize("tower", ["cnn14", "resnet38"])
-def test_other_audio_towers_wait(tower):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tase.ASE(tase.ASEConfig(audio_encoder=tower))
-
-
 @pytest.mark.parametrize("name", ["clip-tiny", "gpt2"])
 def test_other_text_towers_wait(name):
     with pytest.raises(NotImplementedError, match="later slice"):

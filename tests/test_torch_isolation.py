@@ -14,7 +14,8 @@ import torch
 
 import zs_aac_tpu_torch
 from zs_aac_tpu_torch.decoding import magic
-from zs_aac_tpu_torch.models import ase, bert, caption, convert, gpt2, htsat, mapper
+from zs_aac_tpu_torch.eval import zero_shot
+from zs_aac_tpu_torch.models import ase, bert, caption, cnns, convert, gpt2, htsat, mapper
 from zs_aac_tpu_torch.pipeline import extract
 from zs_aac_tpu_torch.train import contrastive, finetune, optim, predict_prompt, pretrain
 from zs_aac_tpu_torch.utils import device as device_mod
@@ -37,6 +38,22 @@ def test_importing_every_module_loads_no_jax():
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'optax', 'zs_aac_tpu'}))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("module", ["zs_aac_tpu_torch.models.cnns",
+                                    "zs_aac_tpu_torch.eval.zero_shot"])
+def test_slice_modules_import_no_jax_pandas_or_yaml(module):
+    """The PANNs towers and the zero-shot CLI load in a fresh interpreter
+    without JAX, flax, optax, the JAX package, pandas or yaml (the card
+    machine has neither of the last two)."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted({n.split('.')[0] for n in sys.modules} & {'jax', 'jaxlib', 'flax', "
+            "'optax', 'zs_aac_tpu', 'pandas', 'yaml'}))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -73,6 +90,12 @@ ENTRY_POINTS = {
     "convert_htsat": (convert.convert_htsat, lambda: convert.convert_htsat({})),
     "convert_bert": (bert.convert_bert, lambda: bert.convert_bert({}, bert.BertConfig())),
     "HTSAT.init": (htsat.HTSAT.init, lambda: htsat.HTSAT().init()),
+    "Cnn14.init": (cnns.Cnn14.init, lambda: cnns.Cnn14(channels=(2,)).init()),
+    "ResNet38.init": (cnns.ResNet38.init, lambda: cnns.ResNet38(layers=(1, 1, 1, 1)).init()),
+    "convert_cnn": (convert.convert_cnn, lambda: convert.convert_cnn({}, 1)),
+    "convert_resnet38": (convert.convert_resnet38, lambda: convert.convert_resnet38({})),
+    "init_ase(cnn14)": (ase.init_ase, lambda: ase.init_ase(ase.ASEConfig(audio_channels=(2,)))),
+    "zero_shot": (zero_shot.zero_shot, lambda: zero_shot.zero_shot({}, {}, "esc50", "x")),
     "load_ase_encoders": (extract.load_ase_encoders, lambda: extract.load_ase_encoders({})),
     "make_encode_fns": (contrastive.make_encode_fns,
                         lambda: contrastive.make_encode_fns(ase.ASE(_HTSAT_ASE))),

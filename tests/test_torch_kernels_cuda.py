@@ -244,11 +244,14 @@ K2_CONFIGS = {"default": {}, "16k": dict(sr=16000, n_fft=512, hop_length=160, n_
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,B,T", [("16k", 2, 16001), ("16k", 64, 320000), ("16k", 1, 513),
                                       ("16mels", 2, 16001), ("16mels", 1, 513),
-                                      ("default", 1, 513), ("default", 64, 320000)])
+                                      ("default", 1, 513), ("default", 64, 320000),
+                                      ("default", 8, 960000), ("default", 64, 960000)])
 def test_k2_frame_kernel_matches_plain(name, B, T):
     """K2 through the frame-run kernel (``logmel_plan``'s choice at these
     shapes, counted in ``.fast_launches``) within 2e-3 dB of the plain
-    version on noise; silence exactly -100 dB."""
+    version on noise; silence exactly -100 dB. T = 960,000 is a 30 s clip,
+    ``configs/pretrain.yaml``'s ``max_length``, which the Cnn14 tower takes
+    whole."""
     _need_cuda()
     cfg = lm.LogMelConfig(**K2_CONFIGS[name])
     assert lm.logmel_plan(cfg, B, T).kernel == "frames"

@@ -136,7 +136,7 @@ def test_log_mel_gradient_matches_jax(kw):
 
 # -- K2's plan, and the frame-run kernel's decomposition on its own tables ----
 
-PLAN_T = [513, 1000, 1025, 16001, 320000]
+PLAN_T = [513, 1000, 1025, 16001, 320000, 960000]   # the last two: 10 s and 30 s at 32 kHz
 
 
 @pytest.mark.parametrize("T", PLAN_T)

@@ -10,7 +10,8 @@ scores rtol 1e-5; the bf16 int8 tower's embeddings 2e-2 of the JAX ones
 int8 activation by one step). Token lists are identical.
 
 The committed CLAP checkpoint (``testdata/tiny_clap/``: ``ase.msgpack``,
-its ``.json`` sidecar and ``vocab.txt``) is written with
+its ``.json`` sidecar, ``vocab.txt`` and ``audio_expected.json``, the JAX
+audio embeddings of ``testdata.clap_waves()``) is written with
 ``PYTHONPATH=. python tests/test_torch_magic.py --write-fixture``, which also
 records the MAGIC captions of the committed tiny captioner in its
 ``expected.json``.
@@ -466,9 +467,43 @@ def test_scorer_through_the_loaded_tower_matches_jax(staged_clap):
 # --- the fixture ------------------------------------------------------------
 
 
+CLAP_AUDIO_RECORD = TINY_CLAP_DIR / "audio_expected.json"
+
+
+def jax_clap_audio_embeddings() -> np.ndarray:
+    """The JAX package's eval-mode audio embeddings of ``clap_waves()`` through
+    the committed CLAP checkpoint (``make_encode_fns``, the XLA log-mel at
+    the default config: 32 kHz, n_fft 1024, hop 320, 64 mels)."""
+    from zs_aac_tpu.models import ase as jase
+    from zs_aac_tpu.ops.logmel import LogMelConfig
+    from zs_aac_tpu.train.contrastive import make_encode_fns
+    from zs_aac_tpu_torch.testdata import clap_waves
+    from zs_aac_tpu_torch.utils.checkpoints import load_params
+
+    meta = json.loads((TINY_CLAP_DIR / "ase.msgpack.json").read_text())
+    acfg = {k: tuple(v) if isinstance(v, list) else v for k, v in meta["ase_config"].items()}
+    saved = dict(jase.TEXT_MODEL_REGISTRY)
+    register_tiny_bert_in_jax(dict.__setitem__)
+    try:
+        encode_audio, _ = make_encode_fns(jase.ASE(jase.ASEConfig(**acfg)), LogMelConfig(),
+                                          mel_impl="xla")
+        variables = jax.tree.map(jnp.asarray, load_params(str(TINY_CLAP_DIR / "ase.msgpack")))
+        return np.asarray(encode_audio(variables, jnp.asarray(clap_waves())))
+    finally:
+        jase.TEXT_MODEL_REGISTRY.clear()
+        jase.TEXT_MODEL_REGISTRY.update(saved)
+
+
+def write_audio_record():
+    """``tiny_clap/audio_expected.json`` from the committed checkpoint."""
+    emb = jax_clap_audio_embeddings()
+    CLAP_AUDIO_RECORD.write_text(json.dumps({"audio_embeddings": emb.tolist()}) + "\n")
+    print(f"wrote {CLAP_AUDIO_RECORD}")
+
+
 def write_fixture():
     """Write ``testdata/tiny_clap/`` (``ase.msgpack`` + ``.json``, the tiny
-    ASE's ``vocab.txt``) and record the
+    ASE's ``vocab.txt``, the audio record) and record the
     JAX ``predict_prompt``'s MAGIC captions of the committed tiny captioner
     into its ``expected.json`` (the other keys and ``best.pth`` untouched).
 
@@ -515,6 +550,7 @@ def write_fixture():
                 expected[mode] = _captions(staged["run_dir"])
     (FIXTURE_DIR / "expected.json").write_text(json.dumps(expected, indent=1, sort_keys=True))
     print(f"wrote {path} and the MAGIC keys of {FIXTURE_DIR / 'expected.json'}")
+    write_audio_record()
 
 
 if __name__ == "__main__":

@@ -216,3 +216,77 @@ def test_recalls_match_jax(n_audio):
         assert got.keys() == want.keys()
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-12, err_msg=f"{fn} {k}")
+
+
+def _cnn14_config(root, vocab):
+    """``_config`` with the tower of ``configs/pretrain.yaml`` and
+    ``configs/train.yaml`` (``type: cnn``, ``model: Cnn14``) at two narrow
+    blocks."""
+    config = _config(root, vocab)
+    config["audio_encoder_args"] = {"type": "cnn", "model": "Cnn14", "pretrained": False,
+                                    "freeze": False}
+    config["audio_channels"] = [4, 8]
+    del config["htsat_kwargs"]
+    return config
+
+
+def test_cnn14_pretrain_and_finetune_drivers(tmp_path, monkeypatch):
+    """The drivers on a Cnn14 config with ``--device cpu``: 2 pretraining
+    steps move every BatchNorm's running statistics (13 in Cnn14; 5 at two
+    blocks) and the finetune driver warm-starts from the checkpoint."""
+    monkeypatch.setenv("WANDB_MODE", "disabled")
+    root = str(tmp_path)
+    vocab = _mk_corpus(root, n_audio=8)
+    config = _cnn14_config(root, vocab)
+    cfg_path = _write(config, f"{root}/config.yaml")
+    ckpt_dir = pretrain.main(["-c", cfg_path, "--max_steps", "2", "--max_val_batches", "2",
+                              "--device", "cpu"])
+    best = os.path.join(ckpt_dir, "best_model.ckpt")
+    saved = torch.load(best, map_location="cpu", weights_only=True)
+    assert saved["step"] == 2 and "Cnn14" in ckpt_dir
+    stats = saved["batch_stats"]["audio_enc"]
+    assert sorted(stats) == ["bn0", "conv_block1", "conv_block2"]
+    for bn in (stats["bn0"], stats["conv_block1"]["bn1"], stats["conv_block2"]["bn2"]):
+        assert not torch.equal(bn["mean"], torch.zeros_like(bn["mean"]))
+        assert not torch.equal(bn["var"], torch.ones_like(bn["var"]))
+    ck2 = finetune.main(["-c", cfg_path, "-d", "Toy", "--max_steps", "1",
+                         "--max_val_batches", "2", "--pretrain_path", best, "--device", "cpu"])
+    assert os.path.exists(os.path.join(ck2, "best_model.ckpt"))
+    assert "warm start from" in open(glob_one(f"{root}/outputs/finetune_Toy_lr_0.0005_seed_20",
+                                              "output.log")).read()
+
+
+@pytest.mark.parametrize("model", ["Cnn14", "ResNet38"])
+def test_load_pretrained_encoder_reads_panns_checkpoints(model, tmp_path):
+    """``audio_encoder_args.pretrained_path``: a PANNs-layout state dict
+    (under ``"model"``, with the ``fc`` head and the extractors, which are
+    skipped) lands in the audio tower's variables."""
+    from test_cnns import _TorchMiniCnn
+    from test_torch_cnns import _TorchResNet38, _randomize_torch
+    from zs_aac_tpu_torch.models.convert import convert_cnn, convert_resnet38
+    from zs_aac_tpu_torch.train.contrastive import create_ase_state
+    from zs_aac_tpu_torch.train.optim import cosine_lr, get_optimizer
+
+    vocab = _mk_corpus(str(tmp_path), n_audio=2)
+    config = _cnn14_config(str(tmp_path), vocab)
+    if model == "ResNet38":
+        config["audio_encoder_args"]["model"] = "ResNet38"
+        config["audio_args"]["n_mels"] = 32
+        ref = _TorchResNet38((3, 4, 6, 3), 32)
+    else:
+        ref = _TorchMiniCnn((4, 8))
+    _randomize_torch(ref, 0)
+    sd = dict(ref.state_dict())
+    sd["fc_audioset.weight"] = torch.zeros(3, 3)
+    sd["spectrogram_extractor.stft.conv_real.weight"] = torch.zeros(3)
+    path = str(tmp_path / "panns.pth")
+    torch.save({"model": sd}, path)
+    config["audio_encoder_args"].update(pretrained=True, pretrained_path=path)
+    ase, _ = pretrain.build_ase_from_config(config, device="cpu")
+    state = create_ase_state(0, ase, get_optimizer(cosine_lr(1e-3, 0, 4), "adam"), device="cpu")
+    state = pretrain.load_pretrained_encoder(state, config, "cpu")
+    want = (convert_resnet38(sd, device="cpu") if model == "ResNet38"
+            else convert_cnn(sd, n_blocks=2, device="cpu"))
+    for part, tree in (("params", state.params["audio_enc"]),
+                       ("batch_stats", state.batch_stats["audio_enc"])):
+        torch.testing.assert_close(tree, want[part], rtol=0, atol=0)

@@ -1,17 +1,18 @@
 """ASE, the CLAP audio-text embedding model.
 
-The counterpart of the JAX package's ``models/ase.py``: the HTSAT audio
-tower and a BERT-family text tower, each projected by a Linear-ReLU-Linear
-head into the shared ``embed_size`` space and L2-normalized. Variables are
-the JAX tree as tensors: ``{"params": {"audio_enc", "text_enc",
-"audio_proj", "text_proj", "temp"}, "batch_stats": {"audio_enc": ...}}``.
+The counterpart of the JAX package's ``models/ase.py``: an audio tower
+(Cnn14, ResNet38 or HTSAT) and a BERT-family text tower, each projected by a
+Linear-ReLU-Linear head into the shared ``embed_size`` space and
+L2-normalized. Variables are the JAX tree as tensors: ``{"params":
+{"audio_enc", "text_enc", "audio_proj", "text_proj", "temp"}, "batch_stats":
+{"audio_enc": ...}}``.
 
-Ported: the HTSAT audio tower, the BERT text towers of the registry and the
-contrastive objective: ``ASE.__call__`` is the JAX ``ASE.__call__`` (the
-bidirectional soft-target ``atc_loss`` with multi-positive targets from the
-audio ids, the learnable temperature, the embedding regularization), and
-``ntxent_loss`` is ported beside it. The Cnn14 and ResNet38 audio towers and
-the CLIP and GPT-2 text towers wait for later slices and raise
+Ported: the three audio towers (``models/cnns.py``, ``models/htsat.py``),
+the BERT text towers of the registry and the contrastive objective:
+``ASE.__call__`` is the JAX ``ASE.__call__`` (the bidirectional soft-target
+``atc_loss`` with multi-positive targets from the audio ids, the learnable
+temperature, the embedding regularization), and ``ntxent_loss`` is ported
+beside it. The CLIP and GPT-2 text towers wait for a later slice and raise
 ``NotImplementedError``.
 """
 
@@ -23,6 +24,7 @@ from typing import Any, Optional
 import torch
 
 from zs_aac_tpu_torch.models.bert import BertConfig, BertEncoder, init_bert
+from zs_aac_tpu_torch.models.cnns import Cnn14, ResNet38
 from zs_aac_tpu_torch.models.htsat import HTSAT
 from zs_aac_tpu_torch.utils.device import resolve_device
 
@@ -84,7 +86,10 @@ class ASEConfig:
     audio_encoder: str = "cnn14"      # "cnn14" | "resnet38" | "htsat"
     text_model: str = "bert-base-uncased"
     spec_augmentation: bool = True
-    audio_channels: Optional[tuple] = None
+    audio_channels: Optional[tuple] = None   # Cnn14's block widths
+    # mel bins of the spectrogram, the width of the Cnn towers' bn0 (which
+    # the JAX init reads off its example input); HTSAT's is in htsat_kwargs
+    n_mels: int = 64
     # HTSAT geometry overrides as (key, value) pairs (hashable)
     htsat_kwargs: Optional[tuple] = None
     fused_attn: Any = False
@@ -124,13 +129,18 @@ class ASE:
 
     def __init__(self, cfg: ASEConfig):
         self.cfg = cfg
-        if cfg.audio_encoder != "htsat":
-            raise NotImplementedError(
-                f"audio tower {cfg.audio_encoder!r} (Cnn14/ResNet38) waits for a later slice")
-        kw = dict(spec_augmentation=cfg.spec_augmentation, dtype=cfg.dtype,
-                  fused_attn=cfg.fused_attn, fused_block=cfg.fused_block)
-        kw.update(dict(cfg.htsat_kwargs) if cfg.htsat_kwargs else {})
-        self.audio_enc = HTSAT(**kw)
+        common = dict(spec_augmentation=cfg.spec_augmentation, dtype=cfg.dtype)
+        if cfg.audio_encoder == "cnn14":
+            kw = {"channels": tuple(cfg.audio_channels)} if cfg.audio_channels else {}
+            self.audio_enc = Cnn14(n_mels=cfg.n_mels, **common, **kw)
+        elif cfg.audio_encoder == "resnet38":
+            self.audio_enc = ResNet38(n_mels=cfg.n_mels, **common)
+        elif cfg.audio_encoder == "htsat":
+            kw = dict(common, fused_attn=cfg.fused_attn, fused_block=cfg.fused_block)
+            kw.update(dict(cfg.htsat_kwargs) if cfg.htsat_kwargs else {})
+            self.audio_enc = HTSAT(**kw)
+        else:
+            raise ValueError(f"unknown audio encoder {cfg.audio_encoder!r}")
         self.text_enc = BertEncoder(text_config(cfg.text_model), cfg.dtype)
 
     def _audio(self, variables, spec, train: bool, generator):
@@ -180,7 +190,8 @@ def init_ase(cfg: ASEConfig, seed: int = 0, device="cuda") -> dict:
     dev = resolve_device(device)
     ase = ASE(cfg)
     audio = ase.audio_enc.init(seed, dev)
-    audio["params"].pop("tscam_conv")  # never called by the ASE (nor in the JAX init tree)
+    # HTSAT's head, never called by the ASE (nor in the JAX init tree)
+    audio["params"].pop("tscam_conv", None)
     g = torch.Generator().manual_seed(seed + 1)
 
     def proj(din):

@@ -14,9 +14,10 @@ returns the port's parameters on ``device``:
   tree of tensors: the port keeps the JAX layouts (flax Dense ``[in, out]``,
   conv HWIO, LayerNorm ``scale``/``bias``, BatchNorm ``mean``/``var``).
 
-``convert_htsat`` and ``convert_ase`` read the reference PyTorch layouts (the
-HTSAT tower's state dict and the full CLAP checkpoint, ``HTSAT-BERT-ZS.pt``)
-into those trees, as the JAX package's converters of the same names do.
+``convert_cnn``, ``convert_resnet38``, ``convert_htsat`` and ``convert_ase``
+read the reference PyTorch layouts (the PANNs towers' and the HTSAT tower's
+state dicts, and the full CLAP checkpoint, ``HTSAT-BERT-ZS.pt``) into those
+trees, as the JAX package's converters of the same names do.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from zs_aac_tpu_torch.models.mapper import MLP, TransformerMapper
 from zs_aac_tpu_torch.utils.device import resolve_device
 
 __all__ = ["from_jax_params", "tree_map", "cast_floating", "state_dict_tensors",
-           "convert_htsat", "convert_ase"]
+           "convert_cnn", "convert_resnet38", "convert_htsat", "convert_ase"]
 
 
 def tree_map(fn, tree):
@@ -133,6 +134,76 @@ def state_dict_tensors(state_dict: Mapping, device) -> dict:
     return out
 
 
+class _Tree:
+    """``{"params", "batch_stats"}`` filled from a reference state dict
+    (tensors on the device, floats fp32): conv weights OIHW -> HWIO,
+    BatchNorm weight/bias -> scale/bias, running mean/var -> batch_stats."""
+
+    def __init__(self, state_dict: Mapping, device):
+        self.sd = state_dict_tensors(state_dict, resolve_device(device))
+        self.params, self.stats = {}, {}
+
+    @staticmethod
+    def _node(tree, path):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        return tree
+
+    def conv(self, path, src):
+        self._node(self.params, path)[path[-1]] = {
+            "kernel": self.sd[src + ".weight"].permute(2, 3, 1, 0).contiguous()}
+
+    def bn(self, path, src):
+        sd = self.sd
+        self._node(self.params, path)[path[-1]] = {"scale": sd[src + ".weight"],
+                                                   "bias": sd[src + ".bias"]}
+        self._node(self.stats, path)[path[-1]] = {"mean": sd[src + ".running_mean"],
+                                                  "var": sd[src + ".running_var"]}
+
+    def conv_block(self, name, src):
+        for i in (1, 2):
+            self.conv((name, f"conv{i}"), f"{src}.conv{i}")
+            self.bn((name, f"bn{i}"), f"{src}.bn{i}")
+
+    def variables(self):
+        return {"params": self.params, "batch_stats": self.stats}
+
+
+def convert_cnn(state_dict: Mapping, n_blocks: int, device="cuda") -> dict:
+    """PANNs Cnn10 (``n_blocks`` 4) / Cnn14 (6) state dict -> variables for
+    ``models.cnns.Cnn10``/``Cnn14``: only the ``bn0`` and ``conv_block{i}``
+    keys are read (the ``fc`` head and the spectrogram/log-mel extractors are
+    skipped, as the reference's loader skips them)."""
+    t = _Tree(state_dict, device)
+    t.bn(("bn0",), "bn0")
+    for i in range(1, n_blocks + 1):
+        t.conv_block(f"conv_block{i}", f"conv_block{i}")
+    return t.variables()
+
+
+def convert_resnet38(state_dict: Mapping, layers=(3, 4, 6, 3), device="cuda") -> dict:
+    """PANNs ResNet38 state dict -> variables for ``models.cnns.ResNet38``.
+    A block's downsample Sequential is ``(conv, bn)`` at ``(0, 1)`` for
+    stride 1 and ``(AvgPool, conv, bn)``, so ``(1, 2)``, for stride 2."""
+    t = _Tree(state_dict, device)
+    t.bn(("bn0",), "bn0")
+    t.conv_block("conv_block1", "conv_block1")
+    t.conv_block("conv_block_after1", "conv_block_after1")
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            src, dst = f"resnet.layer{stage + 1}.{b}", f"layer{stage + 1}_block{b}"
+            for i in (1, 2):
+                t.conv((dst, f"conv{i}"), f"{src}.conv{i}")
+                t.bn((dst, f"bn{i}"), f"{src}.bn{i}")
+            for ci, bi in ((0, 1), (1, 2)):
+                w = t.sd.get(f"{src}.downsample.{ci}.weight")
+                if w is not None and w.dim() == 4:
+                    t.conv((dst, "ds_conv"), f"{src}.downsample.{ci}")
+                    t.bn((dst, "ds_bn"), f"{src}.downsample.{bi}")
+                    break
+    return t.variables()
+
+
 def convert_htsat(state_dict: Mapping, depths=None, device="cuda") -> dict:
     """HTSAT state dict (the reference's layer names: ``bn0``,
     ``patch_embed.{proj,norm}``, ``layers.{i}.blocks.{j}.*``,
@@ -191,21 +262,26 @@ def convert_ase(state_dict: Mapping, cfg, device="cuda") -> dict:
     """Full CLAP checkpoint (the reference's ``HTSAT-BERT-ZS.pt`` layout:
     ``audio_encoder.audio_enc.*``, ``text_encoder.text_encoder.*``,
     ``audio_proj.{0,2}.*``, ``text_proj.{0,2}.*``, ``temp``) ->
-    ``models.ase.ASE`` variables. ``cfg`` is an ``ASEConfig``; the HTSAT
-    audio tower and the BERT text towers are ported."""
+    ``models.ase.ASE`` variables. ``cfg`` is an ``ASEConfig``; the audio
+    tower is HTSAT, ResNet38 or Cnn14 (``len(cfg.audio_channels)`` blocks,
+    else 6), the text tower one of the BERT family."""
     from zs_aac_tpu_torch.models.ase import text_config
     from zs_aac_tpu_torch.models.bert import convert_bert
 
     dev = resolve_device(device)
-    if cfg.audio_encoder != "htsat":
-        raise NotImplementedError(
-            f"audio tower {cfg.audio_encoder!r} (Cnn14/ResNet38) waits for a later slice")
     tcfg = text_config(cfg.text_model)
 
     def sub(prefix):
         return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
 
-    audio = convert_htsat(sub("audio_encoder.audio_enc."), device=dev)
+    audio_sd = sub("audio_encoder.audio_enc.")
+    if cfg.audio_encoder == "htsat":
+        audio = convert_htsat(audio_sd, device=dev)
+    elif cfg.audio_encoder == "resnet38":
+        audio = convert_resnet38(audio_sd, device=dev)
+    else:
+        n_blocks = len(cfg.audio_channels) if cfg.audio_channels else 6
+        audio = convert_cnn(audio_sd, n_blocks=n_blocks, device=dev)
     text = convert_bert(sub("text_encoder.text_encoder."), tcfg, device=dev)
     sd = state_dict_tensors({k: v for k, v in state_dict.items()
                       if k.startswith(("audio_proj.", "text_proj.")) or k == "temp"}, dev)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from zs_aac_tpu_torch.models.cnns import batch_norm
 from zs_aac_tpu_torch.models.gpt2 import _ln
 from zs_aac_tpu_torch.ops.specaug import spec_augment
 from zs_aac_tpu_torch.ops.window_attn import (_window_partition, _window_reverse,  # noqa: F401
@@ -52,7 +53,6 @@ from zs_aac_tpu_torch.utils.device import resolve_device
 __all__ = ["HTSAT", "bicubic_resize_matrix", "drop_path_scale"]
 
 _LN_EPS = 1e-6
-_BN_EPS = 1e-5
 
 
 def _cubic_kernel(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -305,21 +305,11 @@ class HTSAT:
         return x.transpose(1, 2).reshape(B, fr * target_F, target_T // fr)
 
     def _bn0(self, bn, stats, spec, train: bool):
-        """``bn0`` over the mel bins: running statistics in eval; in train the
-        batch's (fp32, biased variance as flax computes it) and the updated
+        """``bn0`` over the mel bins (``models.cnns.batch_norm``, flax's):
+        running statistics in eval; in train the batch's and the updated
         running statistics."""
-        x = spec.float()
-        if not train:
-            y = ((x - stats["mean"].float()) * torch.rsqrt(stats["var"].float() + _BN_EPS)
-                 * bn["scale"].float() + bn["bias"].float())
-            return y.to(self.dtype), None
-        mean = x.mean(dim=(0, 1))
-        var = torch.clamp_min((x * x).mean(dim=(0, 1)) - mean * mean, 0.0)
-        y = (x - mean) * (torch.rsqrt(var + _BN_EPS) * bn["scale"].float()) + bn["bias"].float()
-        with torch.no_grad():
-            new = {"mean": 0.9 * stats["mean"] + 0.1 * mean.detach(),
-                   "var": 0.9 * stats["var"] + 0.1 * var.detach()}
-        return y.to(self.dtype), {"bn0": new}
+        y, new = batch_norm(spec, bn, stats, train, axis=-1)
+        return y.to(self.dtype), ({"bn0": new} if train else None)
 
     def _keep_scales(self, generator, B: int, device):
         """Per block: (m1, m2) drop-path keep scales [B] fp32, or None at rate 0."""

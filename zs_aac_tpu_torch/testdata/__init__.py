@@ -13,6 +13,13 @@ and ``--q8``, beam (``--isbeam``) float and ``--q8``, and MAGIC
 ``--isbeam``, ``--q8``, ``--q8_tower``; ``tests/test_torch_magic.py
 --write-fixture`` records these four on the committed ``best.pth``).
 
+``tiny_clap/``: the CLAP checkpoint MAGIC reads (``ase.msgpack``, the JAX
+package's parameter snapshot: a tiny Cnn14 audio tower, channels (4, 8) over
+64 mels, with ``tiny_ase``'s text tower; its ``.json`` sidecar and
+``vocab.txt``), and ``audio_expected.json``: the JAX package's audio
+embeddings of ``clap_waves()`` (``tests/test_torch_magic.py --write-fixture``
+writes all of it).
+
 ``tiny_ase/``: a tiny CLAP model for the encode half (``tests/
 test_torch_extract.py --write-fixture`` regenerates it): ``ase.pt``, a
 reference-layout state dict (HTSAT at the tiny geometry of
@@ -38,7 +45,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["FIXTURE_DIR", "TINY_ASE_DIR", "TINY_CLAP_DIR", "stage_tiny_captioner", "stage_tiny_ase",
-           "train_batch", "checksums", "TRAIN_STEPS", "TRAIN_OPTIM"]
+           "train_batch", "checksums", "clap_waves", "TRAIN_STEPS", "TRAIN_OPTIM"]
 
 # the recorded train run: Adam under a clip of the global norm at 2, cosine
 # schedule with one warmup step over TRAIN_STEPS steps
@@ -48,6 +55,16 @@ TRAIN_OPTIM = {"lr": 1e-3, "warmup": 1, "clip": 2.0, "optimizer": "adam"}
 FIXTURE_DIR = Path(__file__).resolve().parent / "tiny_captioner"
 TINY_ASE_DIR = Path(__file__).resolve().parent / "tiny_ase"
 TINY_CLAP_DIR = Path(__file__).resolve().parent / "tiny_clap"
+
+
+def clap_waves() -> np.ndarray:
+    """The waves whose embeddings ``tiny_clap/audio_expected.json`` records:
+    three 2 s clips at 32 kHz, a tone (220, 1000, 5000 Hz) under seeded
+    noise; [3, 64000] float32."""
+    rng = np.random.default_rng(12)
+    t = np.arange(64000) / 32000.0
+    return np.stack([0.3 * np.sin(2 * np.pi * f * t) + 0.05 * rng.standard_normal(t.size)
+                     for f in (220.0, 1000.0, 5000.0)]).astype(np.float32)
 
 
 def stage_tiny_captioner(dst) -> dict:

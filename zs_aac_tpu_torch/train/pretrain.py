@@ -10,16 +10,18 @@ saved checkpoint. ``clip_grad`` is applied when set, as in the JAX package.
 wandb logs whenever it imports, as in the JAX driver (``WANDB_MODE=disabled``
 turns it off).
 
-On the card the HTSAT tower trains through the hand-written kernels:
-``build_ase_from_config`` turns on ``fused_attn`` and makes ``fused_block``
-every stage but the last on a CUDA device (the extract driver's
-dispatch): K7 forward and K8/K9 backward in stages 1-3, K5 forward and K6
-backward in stage 4, and K2 for the log-mel. One process, one card;
+The audio tower is the config's: HTSAT (``type: transformer``), or Cnn14 or
+ResNet38 (``type: cnn``, ``model``), whose convolutions are cuDNN's; every
+tower's log-mel is kernel K2 on the card. The HTSAT tower trains through the
+hand-written kernels: ``build_ase_from_config`` turns on ``fused_attn`` and
+makes ``fused_block`` every stage but the last on a CUDA device (the extract
+driver's dispatch): K7 forward and K8/K9 backward in stages 1-3, K5 forward
+and K6 backward in stage 4. One process, one card;
 multi-GPU data parallelism waits for its slice. Checkpoints are the port's
 own (``utils.checkpoints``).
 
 Run: ``python -m zs_aac_tpu_torch.train.pretrain -c configs/pretrain.yaml
--t transformer --device cuda`` (``-c`` needs ``pyyaml``; ``run(config)``
+--device cuda`` (``-c`` needs ``pyyaml``; ``run(config)``
 takes the config as a dict).
 """
 
@@ -66,6 +68,7 @@ def build_ase_from_config(config: dict, device="cuda"):
         spec_augmentation=config.get("training", {}).get("spec_augmentation", True),
         audio_channels=tuple(config["audio_channels"]) if config.get("audio_channels")
         else None,
+        n_mels=config.get("audio_args", {}).get("n_mels", 64),
         htsat_kwargs=tuple((k, tuple(v) if isinstance(v, list) else v)
                            for k, v in htsat_kwargs.items()) if htsat_kwargs else None,
         fused_attn=fused,
@@ -76,17 +79,17 @@ def build_ase_from_config(config: dict, device="cuda"):
 
 
 def load_pretrained_encoder(state, config, device="cuda"):
-    """Load pretrained HTSAT weights into the ASE audio tower (the
+    """Load pretrained PANNs or HTSAT weights into the ASE audio tower (the
     reference's checkpoint surgery). ``audio_encoder_args.pretrained_path``
     is a torch state dict (or {"model": ...}/{"state_dict": ...}) or an
-    ``.npz``; only the HTSAT tower is ported."""
+    ``.npz``: ``type: transformer`` an HTSAT checkpoint, else ``model``
+    ResNet38 or Cnn14 (``len(audio_channels)`` blocks where the config sets
+    them, else 6)."""
     enc = config.get("audio_encoder_args", {})
     path = enc.get("pretrained_path")
     if not (enc.get("pretrained") and path):
         return state
-    if enc.get("type") != "transformer":
-        raise NotImplementedError("pretrained Cnn14/ResNet38 towers wait for a later slice")
-    from zs_aac_tpu_torch.models.convert import convert_htsat
+    from zs_aac_tpu_torch.models.convert import convert_cnn, convert_htsat, convert_resnet38
 
     if path.endswith(".npz"):
         sd = dict(np.load(path))
@@ -95,10 +98,17 @@ def load_pretrained_encoder(state, config, device="cuda"):
         for key in ("model", "state_dict"):
             if isinstance(sd, dict) and key in sd:
                 sd = sd[key]
-        sd = {k.removeprefix("sed_model."): v for k, v in sd.items()
-              if "spectrogram_extractor" not in k and "logmel_extractor" not in k}
+        if enc.get("type") == "transformer":
+            sd = {k.removeprefix("sed_model."): v for k, v in sd.items()
+                  if "spectrogram_extractor" not in k and "logmel_extractor" not in k}
     sd = {k: v for k, v in sd.items() if "fc" not in k and not k.startswith(("spec", "logmel"))}
-    conv = convert_htsat(sd, device=device)
+    if enc.get("type") == "transformer":
+        conv = convert_htsat(sd, device=device)
+    elif enc.get("model") == "ResNet38":
+        conv = convert_resnet38(sd, device=device)
+    else:
+        channels = config.get("audio_channels")
+        conv = convert_cnn(sd, n_blocks=len(channels) if channels else 6, device=device)
     state.params["audio_enc"] = _like(state.params["audio_enc"], conv["params"])
     state.batch_stats["audio_enc"] = _like(state.batch_stats["audio_enc"], conv["batch_stats"])
     return state
