@@ -127,7 +127,31 @@ which must pass:
     synthetic 5 s WAVs at 44.1 kHz and the 50 categories, similarities within
     ``ZS_MARGIN / 2`` of the fp32 all-plain path's and predictions equal where
     its top-2 margin exceeds ``ZS_MARGIN``, clips/s with WAV decode and
-    resampling in the loop.
+    resampling in the loop;
+17. captioner training: the committed tiny-captioner train record
+    (``testdata/tiny_captioner/train_expected.json``, 3 AdamW steps from its
+    ``best.pth``, ``only_prefix`` off and on) through
+    ``make_caption_train_step`` on the card within ``TRAIN_FIXTURE_TOL``;
+    the full-width train step (GPT-2 124M at HF ``gpt2`` widths + MLP mapper
+    1024 -> 3840 -> 7680, seeded, fp32 with TF32 off, B=40 x 25 caption
+    tokens, noise 0.016, AdamW lr 1e-5): one noise-0 step's gradients held
+    to float64 on the card per leaf (cosine >= ``CAPTION_GRAD_COSINE_MIN``,
+    norm ratio within ``CAPTION_GRAD_NORM_TOL``), then for the full update and
+    for ``only_prefix`` a warm-up and 5 steps by CUDA events: samples/s, peak
+    memory, the share of the fp32 bound (``caption_step_flops`` at 67
+    TFLOP/s), the loss on the batch lower after the steps, GPT-2 unchanged
+    under ``only_prefix``, a ``torch.profiler`` table with the device's idle
+    share; the chain through the drivers on a synthetic bank (2,048 streamed
+    1024-d records, 64 test clips): ``pipeline/related.py`` top-5 on the
+    card, ``train_prompt --gpt2_size base --is_rn --use_related_text --bs 40
+    --max_iters 40 --val_interval 20`` (validations at 20, 40 and a final
+    one), then ``predict_prompt`` on its run dir greedy, ``--q8`` and
+    ``--isbeam --q8``, K1's launches in the q8 modes equal to n_layer x the
+    steps each decode ran; and ``attach_related``'s device path over a
+    65,536 x 1024 fp32 bank with 4,096 queries, top-5: the neighbours' float64
+    similarities within ``KNN_TOL`` of float64 numpy's top 5, the sets equal
+    wherever the 5th and 6th similarities differ by more than ``KNN_TOL``,
+    records/s.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -2250,6 +2274,348 @@ def phase_cnn_full_width():
     return cnn_launches
 
 
+# -- captioner training ------------------------------------------------------
+
+# the full-width train step's gradients against the same step in float64 on
+# the card, per leaf: fp32 over 12 layers and a 50,257-way softmax keeps them
+# far above these (a misplaced or missing gradient term does not)
+CAPTION_GRAD_COSINE_MIN = 0.999
+CAPTION_GRAD_NORM_TOL = 0.01
+# the related-caption k-NN against float64 numpy: similarities within this,
+# neighbour sets equal where the 5th and 6th similarities differ by more
+KNN_TOL = 1e-5
+
+
+def caption_step_flops(cfg, B, S, only_prefix):
+    """The matmul flops of one captioner train step (2 per multiply-add):
+    GPT-2's projections, attention scores and values and the tied lm head
+    over B x (prefix_length + S) positions, and the MLP mapper; the backward
+    is twice the forward where weight gradients are taken and once (the
+    activations' gradients) for a frozen GPT-2."""
+    g = cfg.gpt2
+    D, L, V = g.n_embd, cfg.prefix_length + S, g.vocab_size
+    per_token = g.n_layer * (2 * D * 12 * D + 4 * L * D) + 2 * D * V
+    f_gpt = B * L * per_token
+    out = cfg.gpt_embedding_size * cfg.prefix_length
+    f_map = B * 2 * (cfg.prefix_size * out // 2 + out // 2 * out)
+    return (2 if only_prefix else 3) * f_gpt + 3 * f_map
+
+
+def _caption_batch(B, S, P, V, E, g):
+    """A seeded batch: caption lengths 8..S tokens, unit-norm prefixes."""
+    import torch
+
+    lens = torch.randint(8, S + 1, (B,), generator=g, device="cuda")
+    pos = torch.arange(S, device="cuda")[None]
+    tokens = torch.randint(1, V, (B, S), generator=g, device="cuda") * (pos < lens[:, None])
+    mask = torch.cat([torch.ones(B, P, device="cuda"), (pos < lens[:, None]).float()], dim=1)
+    prefix = torch.randn(B, E, generator=g, device="cuda")
+    return {"tokens": tokens, "mask": mask, "prefix": prefix / prefix.norm(dim=-1, keepdim=True)}
+
+
+def _caption_loss_grads(params, cfg, batch, dtype, grads=True):
+    """Loss (noise 0) and the gradient of every leaf of ``to_jax_params``'s
+    tree, evaluated on a copy of ``params`` in ``dtype``."""
+    import copy
+
+    import torch
+
+    from zs_aac_tpu_torch.models.caption import caption_loss, caption_train_logits
+    from zs_aac_tpu_torch.models.convert import tree_map
+    from zs_aac_tpu_torch.train.caption_trainer import tensor_tree
+
+    p = {"mapper": copy.deepcopy(params["mapper"]).to(dtype),
+         "gpt2": tree_map(lambda t: t.detach().to(dtype).requires_grad_(grads), params["gpt2"])}
+    with torch.enable_grad() if grads else torch.no_grad():
+        logits = caption_train_logits(p, cfg, batch["tokens"], batch["prefix"].to(dtype),
+                                      batch["mask"].to(dtype))
+        loss = caption_loss(logits, batch["tokens"])
+        if not grads:
+            return loss.item(), None
+        leaves = _flat_tree(tensor_tree(p))
+        got = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.item(), dict(zip(leaves, got))
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _write_caption_banks(root, n_train=2048, n_test=64, E=1024, seed=0):
+    """A streamed train bank of ``n_train`` records (8-20-word captions over a
+    seeded word list, text embeddings near 16 caption clusters) and a test
+    bank of ``n_test`` clips with audio embeddings."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(400)] + ["dog", "rain", "car", "bird", "wind", "music"]
+    centers = rng.standard_normal((16, E)).astype(np.float32)
+    captions = [" ".join(rng.choice(words, int(rng.integers(8, 21)))) for _ in range(16)]
+    train, test = f"{root}/train.pkl", f"{root}/test.pkl"
+    with open(train, "wb") as f:
+        for i in range(n_train):
+            k = i % 16
+            emb = centers[k] + 0.3 * rng.standard_normal(E).astype(np.float32)
+            pickle.dump({"audio_id": f"t{i}", "caption": captions[k],
+                         "text_embedding": emb[None], "audio_embedding": emb[None]}, f)
+    recs = [{"audio_id": f"clip{i}",
+             "audio_embedding": (centers[i % 16] + 0.3 * rng.standard_normal(E))[None]
+             .astype(np.float32),
+             "caption": [{"caption": captions[i % 16]}, {"caption": captions[(i + 1) % 16]}]}
+            for i in range(n_test)]
+    with open(test, "wb") as f:
+        pickle.dump(recs, f)
+    return train, test
+
+
+def phase_caption_train():
+    """Captioner training (slice 11): the committed train record on the card,
+    the full-width train step (GPT-2 124M + MLP mapper 1024 -> 3840 -> 7680,
+    B=40, fp32), the related -> train -> predict chain through the drivers,
+    and the related-caption k-NN at a bank's size."""
+    import torch
+
+    from zs_aac_tpu_torch import testdata
+    from zs_aac_tpu_torch.models.caption import CaptionConfig
+    from zs_aac_tpu_torch.models.gpt2 import GPT2Config
+    from zs_aac_tpu_torch.train.caption_trainer import (create_caption_state,
+                                                        make_caption_optimizer,
+                                                        make_caption_train_step, tensor_tree)
+
+    # (a) the committed record
+    t0 = time.perf_counter()
+    want = json.loads((testdata.FIXTURE_DIR / "train_expected.json").read_text())
+    got = testdata.replay_caption_train_fixture(device="cuda")
+    for name in ("full", "only_prefix"):
+        err = testdata.train_fixture_errors(got[name], want[name])
+        print(f"[caption] committed train record, {name}, {testdata.CAPTION_TRAIN_STEPS} steps "
+              f"on cuda: losses {[round(v, 7) for v in got[name]['losses']]} (JAX "
+              f"{[round(v, 7) for v in want[name]['losses']]}); relative errors {err} (tol "
+              f"{ {k: TRAIN_FIXTURE_TOL[k] for k in err} })", flush=True)
+        check(all(err[k] <= TRAIN_FIXTURE_TOL[k] for k in err),
+              f"the captioner's {name} train record differs from the JAX-recorded run")
+
+    # (b) the train step at the driver's batch, full and only_prefix
+    B, S, steps = 40, 25, 5
+    for only_prefix in (False, True):
+        cfg = CaptionConfig(prefix_length=10, prefix_size=1024, clip_length=10,
+                            only_prefix=only_prefix, gpt2=GPT2Config())
+        opt = make_caption_optimizer(cfg, lambda step: 1e-5)
+        state = create_caption_state(0, cfg, opt, device="cuda")
+        step = make_caption_train_step(cfg, opt, noise_variance=0.016, device="cuda")
+        batch = _caption_batch(B, S, 10, cfg.gpt2.vocab_size, 1024,
+                               torch.Generator(device="cuda").manual_seed(30))
+        tag = "only_prefix" if only_prefix else "full update"
+        if not only_prefix:
+            # one step's gradients at noise 0 against the same step in float64
+            _, g32 = _caption_loss_grads(state.params, cfg, batch, torch.float32)
+            _, g64 = _caption_loss_grads(state.params, cfg, batch, torch.float64)
+            rows = []
+            for k in g32:
+                a, b = g32[k].double().reshape(-1), g64[k].reshape(-1)
+                rows.append((torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+                             a.norm().item() / b.norm().item(), k))
+            cos_min = min(rows)
+            ratio = max(rows, key=lambda r: abs(r[1] - 1))
+            print(f"[caption] full-width gradients, fp32 vs float64 on the card over "
+                  f"{len(rows)} leaves: cosine min {cos_min[0]:.6f} ({cos_min[2]}), "
+                  f"|norm ratio - 1| max {abs(ratio[1] - 1):.2e} ({ratio[2]}) (thresholds "
+                  f"{CAPTION_GRAD_COSINE_MIN}, {CAPTION_GRAD_NORM_TOL})", flush=True)
+            check(cos_min[0] >= CAPTION_GRAD_COSINE_MIN, "fp32 gradients diverge from float64")
+            check(abs(ratio[1] - 1) <= CAPTION_GRAD_NORM_TOL,
+                  "fp32 gradient norms differ from float64")
+            del g32, g64
+        before, _ = _caption_loss_grads(state.params, cfg, batch, torch.float32, grads=False)
+        gpt2_leaves = lambda: _flat_tree(tensor_tree(state.params["gpt2"])).values()
+        gpt2_sum = float(sum(t.double().sum() for t in gpt2_leaves()))
+        state, loss0 = step(state, batch, 0)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = []
+        for _ in range(steps):
+            state, loss = step(state, batch, 0)
+            losses.append(loss)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        after, _ = _caption_loss_grads(state.params, cfg, batch, torch.float32, grads=False)
+        flops = caption_step_flops(cfg, B, S, only_prefix)
+        bound_ms = flops / H100_FP32_FLOPS * 1e3
+        print(f"[caption] train step, {tag}, B={B} x {10 + S} positions, fp32, seeded GPT-2 "
+              f"124M + MLP mapper, AdamW lr 1e-5, noise 0.016: losses "
+              f"{[round(float(v), 5) for v in [loss0] + losses]}; {step_ms:.2f} ms a step by "
+              f"CUDA events -> {B / step_ms * 1e3:.1f} samples/s; peak memory {peak:.2f} GiB; "
+              f"{flops / 1e12:.3f} TFLOP a step, fp32 bound {bound_ms:.2f} ms ({bound_ms / step_ms:.1%} "
+              f"of it)", flush=True)
+        print(f"[caption] loss on the batch at noise 0: {before:.6f} before the warm-up, "
+              f"{after:.6f} after the {steps} timed steps", flush=True)
+        check(all(math.isfinite(float(v)) for v in losses), "non-finite captioner loss")
+        check(after < before, f"the captioner's loss did not fall over the steps ({tag})")
+        if only_prefix:
+            gpt2_after = float(sum(t.double().sum() for t in gpt2_leaves()))
+            check(gpt2_after == gpt2_sum, "only_prefix moved GPT-2")
+        _, pwall, dev_ms, events = profiled(lambda: step(state, batch, 0))
+        print(f"[profile] one captioner train step ({tag}) under torch.profiler: wall "
+              f"{pwall:.2f} ms, device time {dev_ms:.2f} ms (device idle "
+              f"{1 - dev_ms / pwall:.1%} of the wall)", flush=True)
+        print(events.table(sort_by="cuda_time_total", row_limit=12), flush=True)
+        del state, step, opt, batch
+        torch.cuda.empty_cache()
+
+    chain = _caption_chain()
+    _caption_knn()
+    print(f"[caption] phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return chain
+
+
+def _caption_chain():
+    """related -> train_prompt (GPT-2 124M, --is_rn --use_related_text, B=40,
+    40 steps, validations at 20 and 40 and a final one) -> predict_prompt
+    greedy float, --q8 and --isbeam --q8, with K1's launches counted against
+    the steps each q8 decode ran."""
+    import glob
+    import os
+
+    from zs_aac_tpu_torch.decoding import beam as beam_mod
+    from zs_aac_tpu_torch.decoding import greedy as greedy_mod
+    from zs_aac_tpu_torch.decoding.greedy import CHECK_EVERY
+    from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8
+    from zs_aac_tpu_torch.pipeline.related import main as related
+    from zs_aac_tpu_torch.train.predict_prompt import main as predict
+    from zs_aac_tpu_torch.train.train_prompt import main as train
+
+    n_layer, chain_launches = 12, 0
+    with tempfile.TemporaryDirectory() as root:
+        train_bank, test_bank = _write_caption_banks(root)
+        t = time.perf_counter()
+        n = related(["--input_path", train_bank, "--output_path", f"{root}/related.pkl",
+                     "--topnumber", "5"])
+        print(f"[chain] related: {n} records, top-5 on cuda, {time.perf_counter() - t:.2f} s",
+              flush=True)
+        check(n == 2048, f"related wrote {n} records")
+        t = time.perf_counter()
+        run = train(["--data", f"{root}/related.pkl", "--valdata", test_bank, "--out_dir",
+                     f"{root}/runs", "--gpt2_size", "base", "--is_rn", "--use_related_text",
+                     "--bs", "40", "--max_iters", "40", "--val_interval", "20",
+                     "--noise_variance", "0.016"])
+        train_s = time.perf_counter() - t
+        for name in ("params.json", "train_caption.log", "best.pth", "last.pth"):
+            check(os.path.exists(os.path.join(run, name)), f"the run dir lacks {name}")
+        log = open(os.path.join(run, "train_caption.log")).read().splitlines()
+        vals = [ln for ln in log[2:] if ln.strip()]
+        print(f"[chain] train_prompt GPT-2 124M B=40, 40 steps, {len(vals)} validations "
+              f"(beam 3, 64 clips): {train_s:.1f} s; log {vals}", flush=True)
+        check(len(vals) == 3, f"validations logged: {vals}")
+        params = json.load(open(os.path.join(run, "params.json")))
+        check(params["gpt2_vocab_size"] == 50257, "the run's GPT-2 vocabulary")
+        size = os.path.getsize(os.path.join(run, "best.pth")) / 2 ** 20
+        for mode, flags in (("greedy", []), ("q8", ["--q8"]), ("beam_q8", ["--isbeam", "--q8"])):
+            runs = []
+            real = {(greedy_mod, "greedy_decode"): greedy_mod.greedy_decode,
+                    (greedy_mod, "greedy_decode_q8"): greedy_mod.greedy_decode_q8,
+                    (beam_mod, "beam_search_batched_q8"): beam_mod.beam_search_batched_q8}
+
+            def recorder(kind, fn, steps_arg):
+                def wrapped(*a, **k):
+                    out = fn(*a, **k)
+                    runs.append((kind, out[0], out[1], a[steps_arg]))
+                    return out
+                return wrapped
+
+            for (mod, name), fn in real.items():
+                setattr(mod, name, recorder("beam" if "beam" in name else name, fn,
+                                            4 if "beam" in name else 3))
+            decode_attn_q8.launches = 0
+            t = time.perf_counter()
+            try:
+                predict(["--test_dir", run, "--data", test_bank] + flags)
+            finally:
+                for (mod, name), fn in real.items():
+                    setattr(mod, name, fn)
+            wall = time.perf_counter() - t
+            launches = decode_attn_q8.launches
+            expected = 0
+            for kind, toks, lens, entry in runs:
+                check(bool(((toks >= 0) & (toks < 50257)).all()) and int(lens.min()) >= 1
+                      and int(lens.max()) <= entry, f"{mode}: token ids or lengths out of range")
+                if kind == "greedy_decode_q8":
+                    expected += n_layer * min(entry, math.ceil(int(lens.max()) / CHECK_EVERY)
+                                              * CHECK_EVERY)
+                elif kind == "beam":
+                    expected += n_layer * beam_steps_run(lens, entry)
+            check(len(runs) == 2, f"{mode}: {len(runs)} decodes, expected 2 chunks of 32")
+            with open(os.path.join(run, "output.txt")) as f:
+                preds = json.load(f)["predictions"]
+            timing = json.load(open(os.path.join(run, "timing.json")))
+            print(f"[chain] predict_prompt {mode}: {len(preds)} captions, {wall:.1f} s "
+                  f"(decode {timing['decode_s']} s), K1 launches {launches} (expected "
+                  f"{expected} from the steps its {len(runs)} decodes ran); e.g. "
+                  f"{preds[0]['caption'][:60]!r} (ids past the word tokenizer's vocabulary "
+                  f"decode to nothing)", flush=True)
+            check(len(preds) == 64 and all(isinstance(p["caption"], str) for p in preds),
+                  f"{mode}: captions malformed")
+            check(launches == expected and (launches > 0) == (mode != "greedy"),
+                  f"{mode}: K1 launches {launches}, expected {expected}")
+            chain_launches += launches
+        print(f"[chain] best.pth {size:.1f} MiB; run dir files "
+              f"{sorted(os.path.basename(p) for p in glob.glob(run + '/*'))}", flush=True)
+    return chain_launches
+
+
+def _caption_knn(N=65536, Q=4096, E=1024, k=5):
+    """``attach_related``'s device path at a bank's size against float64."""
+    import numpy as np
+    import torch
+
+    from zs_aac_tpu_torch.pipeline.related import attach_related
+
+    rng = np.random.default_rng(5)
+    bank = rng.standard_normal((N, E), dtype=np.float32)
+    bank /= np.linalg.norm(bank, axis=1, keepdims=True)
+    # queries near bank rows, so the top-5 hold near neighbours and far ones
+    base = bank[rng.integers(0, N, Q)]
+    q = base + 0.7 * rng.standard_normal((Q, E), dtype=np.float32) / math.sqrt(E)
+    records = [{"text_embedding": q[i:i + 1]} for i in range(Q)]
+    list(attach_related(bank, records[:256], k, device="cuda"))     # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = list(attach_related(bank, records, k, device="cuda"))
+    wall = time.perf_counter() - t
+    got = np.stack([r["related_embeddings"] for r in out])           # [Q, k, E]
+    qn = (q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)).astype(np.float64)
+    b64 = bank.astype(np.float64)
+    sims_err, n_held = 0.0, 0
+    for s in range(0, Q, 512):
+        sims = qn[s:s + 512] @ b64.T
+        part = np.argpartition(-sims, k + 1, axis=1)[:, :k + 1]
+        order = np.argsort(-np.take_along_axis(sims, part, axis=1), axis=1)
+        top = np.take_along_axis(part, order, axis=1)
+        top_s = np.take_along_axis(sims, top, axis=1)
+        got_s = np.einsum("qe,qke->qk", qn[s:s + 512], got[s:s + 512].astype(np.float64))
+        sims_err = max(sims_err, float(np.abs(np.sort(got_s, axis=1)[:, ::-1] - top_s[:, :k]).max()))
+        clear = top_s[:, k - 1] - top_s[:, k] > KNN_TOL
+        ref = bank[top[:, :k]]
+        same = np.all(got[s:s + 512, :, None] == ref[:, None], axis=-1).any(axis=2).all(axis=1)
+        n_held += int(clear.sum())
+        check(bool(same[clear].all()), "k-NN neighbours differ from float64 numpy")
+    print(f"[knn] attach_related on cuda: bank {N} x {E} fp32 ({bank.nbytes / 1e6:.0f} MB "
+          f"resident), {Q} queries, top-{k}: {Q / wall:.1f} records/s ({wall:.2f} s); "
+          f"similarities within {sims_err:.2e} of float64 (tol {KNN_TOL}); neighbour sets equal "
+          f"on {n_held} of {Q} queries with a 5th/6th gap above {KNN_TOL}", flush=True)
+    check(sims_err <= KNN_TOL, "k-NN similarities off float64")
+
+
 def main():
     import torch
 
@@ -2278,6 +2644,7 @@ def main():
     beam_launches = phase_beam_full_width()
     phase_magic_full_width()
     cnn_launches = phase_cnn_full_width()
+    chain_launches = phase_caption_train()
 
     kernels = [{
         "name": "decode_attn_q8",
@@ -2286,6 +2653,7 @@ def main():
         "replaces": "zs_aac_tpu/ops/decode_attn.py:51",
         "launches": launches,
         "beam_launches": beam_launches,
+        "caption_chain_launches": chain_launches,
         "max_abs_err": worst["bfloat16"],
         "ms": k1["ms"],
         "graph_ms": k1["graph_ms"],

@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,9 +17,11 @@ import zs_aac_tpu_torch
 from zs_aac_tpu_torch.decoding import magic
 from zs_aac_tpu_torch.eval import zero_shot
 from zs_aac_tpu_torch.models import ase, bert, caption, cnns, convert, gpt2, htsat, mapper
-from zs_aac_tpu_torch.pipeline import extract
-from zs_aac_tpu_torch.train import contrastive, finetune, optim, predict_prompt, pretrain
+from zs_aac_tpu_torch.pipeline import extract, related
+from zs_aac_tpu_torch.train import (caption_trainer, contrastive, finetune, optim, predict_prompt,
+                                    pretrain, train_prompt)
 from zs_aac_tpu_torch.utils import device as device_mod
+from zs_aac_tpu_torch.utils import memory
 
 PKG = Path(zs_aac_tpu_torch.__file__).parent
 REPO = PKG.parent
@@ -32,8 +35,11 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     kernels = {"zs_aac_tpu_torch.ops." + m
                for m in ("decode_attn", "logmel", "window_attn", "specaug")}
-    train = {"zs_aac_tpu_torch.train." + m for m in ("optim", "pretrain", "finetune")}
-    assert kernels | train <= set(mods) and len(mods) >= 47
+    train = {"zs_aac_tpu_torch.train." + m for m in ("optim", "pretrain", "finetune",
+                                                     "train_prompt", "caption_trainer")}
+    captioner = {"zs_aac_tpu_torch." + m for m in ("pipeline.related", "utils.noise",
+                                                   "utils.memory", "data.prompts")}
+    assert kernels | train | captioner <= set(mods) and len(mods) >= 53
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
@@ -46,11 +52,18 @@ def test_importing_every_module_loads_no_jax():
 
 
 @pytest.mark.parametrize("module", ["zs_aac_tpu_torch.models.cnns",
-                                    "zs_aac_tpu_torch.eval.zero_shot"])
+                                    "zs_aac_tpu_torch.eval.zero_shot",
+                                    "zs_aac_tpu_torch.train.train_prompt",
+                                    "zs_aac_tpu_torch.train.caption_trainer",
+                                    "zs_aac_tpu_torch.pipeline.related",
+                                    "zs_aac_tpu_torch.utils.noise",
+                                    "zs_aac_tpu_torch.utils.memory",
+                                    "zs_aac_tpu_torch.data.prompts"])
 def test_slice_modules_import_no_jax_pandas_or_yaml(module):
-    """The PANNs towers and the zero-shot CLI load in a fresh interpreter
-    without JAX, flax, optax, the JAX package, pandas or yaml (the card
-    machine has neither of the last two)."""
+    """The PANNs towers, the zero-shot CLI and the captioner's training
+    modules load in a fresh interpreter without JAX, flax, optax, the JAX
+    package, pandas or yaml (the card machine has neither of the last
+    two)."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
             "print(sorted({n.split('.')[0] for n in sys.modules} & {'jax', 'jaxlib', 'flax', "
             "'optax', 'zs_aac_tpu', 'pandas', 'yaml'}))")
@@ -68,6 +81,9 @@ def test_sources_name_no_jax_package():
 
 
 _HTSAT_ASE = ase.ASEConfig(audio_encoder="htsat")
+_CAPTION = caption.CaptionConfig(prefix_size=8, prefix_length=2,
+                                 gpt2=gpt2.GPT2Config(vocab_size=8, n_positions=8, n_embd=8,
+                                                      n_layer=1, n_head=2))
 _ADAM = optim.get_optimizer(lambda step: 1e-3, "adam")
 
 # name -> (function, a call of it that takes the default device)
@@ -106,6 +122,18 @@ ENTRY_POINTS = {
     "pretrain.run": (pretrain.run, lambda: pretrain.run({})),
     "make_magic_scorer": (magic.make_magic_scorer,
                           lambda: magic.make_magic_scorer("ase.msgpack", None)),
+    "init_cross_attention": (caption.init_cross_attention,
+                             lambda: caption.init_cross_attention(_CAPTION)),
+    "create_caption_state": (caption_trainer.create_caption_state,
+                             lambda: caption_trainer.create_caption_state(0, _CAPTION, _ADAM)),
+    "make_caption_train_step": (caption_trainer.make_caption_train_step,
+                                lambda: caption_trainer.make_caption_train_step(_CAPTION, _ADAM)),
+    "construct_support_memory": (memory.construct_support_memory,
+                                 lambda: memory.construct_support_memory([])),
+    "attach_related": (related.attach_related,
+                       lambda: list(related.attach_related(np.zeros((2, 4), np.float32), []))),
+    "run_validation": (train_prompt.run_validation,
+                       lambda: train_prompt.run_validation({}, _CAPTION, [], None, 0, {})),
 }
 
 
@@ -124,6 +152,17 @@ def test_predict_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         predict_prompt.main(["--test_dir", str(tmp_path), "--data", "none.pkl"])
+
+
+def test_caption_drivers_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    args = train_prompt.build_parser().parse_args(["--data", "x", "--valdata", "y"])
+    assert args.device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_prompt.main(["--data", "none.pkl", "--valdata", "none.pkl",
+                           "--out_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        related.main(["--input_path", "none.pkl", "--output_path", str(tmp_path / "o.pkl")])
 
 
 @pytest.mark.parametrize("flag", ["--bf16_softmax"])

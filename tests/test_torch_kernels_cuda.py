@@ -885,3 +885,56 @@ def test_htsat_train_dispatch_matches_plain():
         res.append([out.detach()] + list(torch.autograd.grad(out.square().sum(), leaves)))
     for a, b in zip(*res):
         torch.testing.assert_close(a, b, atol=1e-4 * b.abs().max().item() + 1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_caption_snapshot_and_train_driver_on_cuda(tmp_path):
+    """``save_params`` of parameters on the card writes what the reader
+    gives back, and ``train_prompt`` takes steps on the card (two steps,
+    one validation each, a tiny GPT-2) into a run dir that ``load_params``
+    reads."""
+    import json
+    import os
+    import pickle
+
+    import numpy as np
+
+    from zs_aac_tpu_torch.models.caption import CaptionConfig, init_caption_model
+    from zs_aac_tpu_torch.models.convert import to_jax_params
+    from zs_aac_tpu_torch.models.gpt2 import GPT2Config
+    from zs_aac_tpu_torch.train.train_prompt import main as train
+    from zs_aac_tpu_torch.utils.checkpoints import load_params, save_params
+
+    _need_cuda()
+    cfg = CaptionConfig(prefix_size=16, prefix_length=4,
+                        gpt2=GPT2Config(vocab_size=30, n_positions=48, n_embd=32, n_layer=2,
+                                        n_head=4))
+    params = init_caption_model(cfg, seed=1, device="cuda")
+    save_params(str(tmp_path / "p.pth"), params)
+    got, want = load_params(str(tmp_path / "p.pth")), to_jax_params(params)
+    flat = lambda t, p="": {k2: v2 for k, v in t.items() for k2, v2 in (
+        flat(v, f"{p}{k}/").items() if isinstance(v, dict) else [(p + k, v)])}
+    assert sorted(flat(got)) == sorted(flat(want))
+    assert all(np.array_equal(flat(got)[k], flat(want)[k]) for k in flat(want))
+
+    rng = np.random.default_rng(0)
+    caps = ["a dog barks in the yard.", "rain falls on the roof."]
+    emb = lambda k: (np.eye(16, dtype=np.float32)[k * 8] + 0.05 * rng.standard_normal(16)
+                     ).astype(np.float32)[None]
+    train_recs = [{"audio_id": f"t{i}", "caption": caps[i % 2], "text_embedding": emb(i % 2)}
+                  for i in range(16)]
+    test_recs = [{"audio_id": f"c{i}", "audio_embedding": emb(i % 2),
+                  "caption": [{"caption": caps[i % 2]}]} for i in range(4)]
+    for name, recs in (("train", train_recs), ("test", test_recs)):
+        with open(tmp_path / f"{name}.pkl", "wb") as f:
+            pickle.dump(recs, f)
+    run = train(["--data", str(tmp_path / "train.pkl"), "--valdata", str(tmp_path / "test.pkl"),
+                 "--out_dir", str(tmp_path / "runs"), "--bs", "8", "--max_iters", "2",
+                 "--val_interval", "1", "--gpt2_size", "tiny", "--prefix_dim", "16",
+                 "--prefix_length", "4", "--prefix_length_clip", "4", "--device", "cuda"])
+    assert json.load(open(os.path.join(run, "params.json")))["device"] == "cuda"
+    for name in ("best.pth", "last.pth"):
+        tree = load_params(os.path.join(run, name))
+        assert sorted(tree) == ["gpt2", "mapper"]
+    log = open(os.path.join(run, "train_caption.log")).read().splitlines()
+    assert len(log) == 5 and all(np.isfinite(float(ln.split("\t")[1])) for ln in log[2:])

@@ -9,10 +9,17 @@ returns the port's parameters on ``device``:
   tensors ``models.gpt2`` takes (the int8 lm-head padded as it pads it);
 - a mapper tree (flax ``Dense`` kernels ``[in, out]``) -> an ``MLP`` or
   ``TransformerMapper`` module with the weights loaded;
-- a caption-model tree {"mapper", "gpt2"} -> {"mapper": module, "gpt2": dict};
+- a caption-model tree {"mapper", "gpt2", ["sound_effect"],
+  ["cross_attention"]} -> {"mapper": module, "gpt2": dict, ["sound_effect":
+  MLP], ["cross_attention": module]};
 - a variable tree ``{"params", "batch_stats"}`` (ASE, HTSAT, BERT) -> the same
   tree of tensors: the port keeps the JAX layouts (flax Dense ``[in, out]``,
   conv HWIO, LayerNorm ``scale``/``bias``, BatchNorm ``mean``/``var``).
+
+``to_jax_params(params)`` is the inverse for caption models and their parts:
+the port's modules and dicts of tensors back to the JAX package's layout, as
+numpy copies in nested dicts (lists keyed "0", "1", ..., as flax's
+``to_state_dict`` writes them), ready for ``utils.checkpoints.save_params``.
 
 ``convert_cnn``, ``convert_resnet38``, ``convert_htsat`` and ``convert_ase``
 read the reference PyTorch layouts (the PANNs towers' and the HTSAT tower's
@@ -29,10 +36,13 @@ import numpy as np
 import torch
 
 from zs_aac_tpu_torch.models.gpt2 import _pad_wte_q
+from torch import nn
+
+from zs_aac_tpu_torch.models.caption import SoundEffectCrossAttention
 from zs_aac_tpu_torch.models.mapper import MLP, TransformerMapper
 from zs_aac_tpu_torch.utils.device import resolve_device
 
-__all__ = ["from_jax_params", "tree_map", "cast_floating", "state_dict_tensors",
+__all__ = ["from_jax_params", "to_jax_params", "tree_map", "cast_floating", "state_dict_tensors",
            "convert_cnn", "convert_resnet38", "convert_htsat", "convert_ase"]
 
 
@@ -112,6 +122,16 @@ def _mapper(tree, device):
     return module
 
 
+def _cross_attention(tree, device):
+    dim = np.asarray(tree["q_proj"]["kernel"]).shape[0]
+    module = SoundEffectCrossAttention(dim, device=device)
+    sd = {}
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _linear(sd, name, tree[name], device)
+    module.load_state_dict(sd)
+    return module
+
+
 def from_jax_params(tree, device="cuda"):
     """JAX-package parameter tree (numpy leaves) -> port parameters."""
     dev = resolve_device(device)
@@ -119,10 +139,61 @@ def from_jax_params(tree, device="cuda"):
         return tree_map(lambda a: _to_tensor(a, dev), tree)
     tree = _listify(tree)
     if "gpt2" in tree and "mapper" in tree:
-        return {"mapper": _mapper(tree["mapper"], dev), "gpt2": _gpt2(tree["gpt2"], dev)}
+        out = {"mapper": _mapper(tree["mapper"], dev), "gpt2": _gpt2(tree["gpt2"], dev)}
+        if "sound_effect" in tree:
+            out["sound_effect"] = _mapper(tree["sound_effect"], dev)
+        if "cross_attention" in tree:
+            out["cross_attention"] = _cross_attention(tree["cross_attention"], dev)
+        return out
     if "wte" in tree and "h" in tree:
         return _gpt2(tree, dev)
     return _mapper(tree, dev)
+
+
+def _host(t) -> np.ndarray:
+    """A numpy copy of a tensor or array (never a view of its storage)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().to("cpu", copy=True).numpy()
+    return np.array(t)
+
+
+def _dense(lin: nn.Linear) -> dict:
+    out = {"kernel": _host(lin.weight).T.copy()}
+    if lin.bias is not None:
+        out["bias"] = _host(lin.bias)
+    return out
+
+
+def _module_tree(module: nn.Module) -> dict:
+    """A port module's parameters under the names the JAX modules use."""
+    if isinstance(module, MLP):
+        return {f"fc{i}": _dense(lin) for i, lin in enumerate(module.layers)}
+    if isinstance(module, TransformerMapper):
+        out = {"linear": _dense(module.linear), "prefix_const": _host(module.prefix_const)}
+        for i, layer in enumerate(module.layers):
+            ln = lambda m: {"scale": _host(m.weight), "bias": _host(m.bias)}
+            out[f"layer{i}"] = {
+                "norm1": ln(layer.norm1),
+                "attn": {n: _dense(getattr(layer.attn, n))
+                         for n in ("to_queries", "to_keys_values", "project")},
+                "norm2": ln(layer.norm2), "fc1": _dense(layer.fc1), "fc2": _dense(layer.fc2)}
+        return out
+    if isinstance(module, SoundEffectCrossAttention):
+        return {n: _dense(getattr(module, n)) for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+    raise TypeError(f"no JAX layout for {type(module).__name__}")
+
+
+def to_jax_params(params):
+    """Port parameters (a caption model, a mapper, a GPT-2 dict, or any tree
+    of them) -> the JAX package's parameter tree of numpy copies, lists as
+    dicts keyed "0", "1", ... (flax's state dict)."""
+    if isinstance(params, nn.Module):
+        return _module_tree(params)
+    if isinstance(params, dict):
+        return {k: to_jax_params(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return {str(i): to_jax_params(v) for i, v in enumerate(params)}
+    return _host(params)
 
 
 def state_dict_tensors(state_dict: Mapping, device) -> dict:

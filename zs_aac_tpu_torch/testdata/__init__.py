@@ -45,12 +45,19 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["FIXTURE_DIR", "TINY_ASE_DIR", "TINY_CLAP_DIR", "stage_tiny_captioner", "stage_tiny_ase",
-           "train_batch", "checksums", "clap_waves", "TRAIN_STEPS", "TRAIN_OPTIM"]
+           "train_batch", "checksums", "clap_waves", "TRAIN_STEPS", "TRAIN_OPTIM",
+           "CAPTION_TRAIN_STEPS", "CAPTION_TRAIN_OPTIM", "caption_fixture_config",
+           "caption_train_batch", "replay_caption_train_fixture"]
 
 # the recorded train run: Adam under a clip of the global norm at 2, cosine
 # schedule with one warmup step over TRAIN_STEPS steps
 TRAIN_STEPS = 3
 TRAIN_OPTIM = {"lr": 1e-3, "warmup": 1, "clip": 2.0, "optimizer": "adam"}
+
+# the recorded captioner run: AdamW with decay, linear warmup over one step
+# then linear decay to 0 at CAPTION_TRAIN_STEPS + 1, noise 0
+CAPTION_TRAIN_STEPS = 3
+CAPTION_TRAIN_OPTIM = {"lr": 1e-3, "warmup": 1, "weight_decay": 0.01}
 
 FIXTURE_DIR = Path(__file__).resolve().parent / "tiny_captioner"
 TINY_ASE_DIR = Path(__file__).resolve().parent / "tiny_ase"
@@ -200,10 +207,85 @@ def replay_train_fixture(device="cuda", **config_overrides) -> dict:
             "batch_stats": {k: v.tolist() for k, v in stats.items()}}
 
 
+def caption_fixture_config() -> dict:
+    """The tiny captioner's ``CaptionConfig`` fields (its ``params.json``),
+    with its GPT-2's under "gpt2"."""
+    saved = json.loads((FIXTURE_DIR / "params.json").read_text())
+    return {"prefix_length": saved["prefix_length"], "prefix_size": saved["prefix_dim"],
+            "clip_length": saved["prefix_length_clip"], "num_layers": saved["num_layers"],
+            "mapping_type": saved["mapping_type"],
+            "gpt2": {"vocab_size": saved["gpt2_vocab_size"], "n_positions": 128, "n_embd": 64,
+                     "n_layer": 2, "n_head": 4}}
+
+
+def caption_train_batch() -> dict:
+    """The recorded captioner batch (numpy): the first 8 captions of the
+    fixture's training bank (word tokenizer of the run, ending '.', padded
+    to 12 tokens behind ``prefix_length`` mask ones), each with a noisy
+    one-hot-block embedding of its caption's cluster (i % 4), as the run's
+    bank was made."""
+    import pickle
+
+    from zs_aac_tpu_torch.train.train_prompt import _make_tokenizer
+
+    bank = str(FIXTURE_DIR / "train.pkl")
+    tok, _ = _make_tokenizer(None, [bank])
+    with open(bank, "rb") as f:
+        records = pickle.load(f)[:8]
+    P, S, E = caption_fixture_config()["prefix_length"], 12, 32
+    rng = np.random.default_rng(21)
+    tokens = np.zeros((len(records), S), np.int64)
+    mask = np.zeros((len(records), P + S), np.float32)
+    mask[:, :P] = 1.0
+    prefix = np.zeros((len(records), E), np.float32)
+    for i, rec in enumerate(records):
+        ids = tok.encode(rec["caption"])[:S]
+        tokens[i, :len(ids)] = ids
+        mask[i, P:P + len(ids)] = 1.0
+        prefix[i, (i % 4) * 8:(i % 4 + 1) * 8] = 1.0
+        prefix[i] += 0.05 * rng.standard_normal(E).astype(np.float32)
+    return {"tokens": tokens, "mask": mask, "prefix": prefix}
+
+
+def replay_caption_train_fixture(device="cuda") -> dict:
+    """The recorded captioner runs through the port's
+    ``make_caption_train_step`` on ``device``: {"full" | "only_prefix":
+    {"losses", "checksums"}}."""
+    from zs_aac_tpu_torch.models.caption import CaptionConfig
+    from zs_aac_tpu_torch.models.convert import from_jax_params, to_jax_params
+    from zs_aac_tpu_torch.models.gpt2 import GPT2Config
+    from zs_aac_tpu_torch.train.caption_trainer import (CaptionTrainState,
+                                                        make_caption_optimizer,
+                                                        make_caption_train_step, tensor_tree)
+    from zs_aac_tpu_torch.train.optim import linear_warmup_lr
+    from zs_aac_tpu_torch.utils.checkpoints import load_params
+
+    fields = caption_fixture_config()
+    gpt2 = GPT2Config(**fields.pop("gpt2"))
+    o = CAPTION_TRAIN_OPTIM
+    batch = caption_train_batch()
+    out = {}
+    for name, only_prefix in (("full", False), ("only_prefix", True)):
+        cfg = CaptionConfig(**fields, only_prefix=only_prefix, gpt2=gpt2)
+        params = from_jax_params(load_params(str(FIXTURE_DIR / "best.pth")), device=device)
+        opt = make_caption_optimizer(cfg, linear_warmup_lr(o["lr"], o["warmup"],
+                                                           CAPTION_TRAIN_STEPS + 1),
+                                     o["weight_decay"])
+        state = CaptionTrainState(params, opt.init(tensor_tree(params)), 0)
+        step = make_caption_train_step(cfg, opt, noise_variance=0.0, device=device)
+        losses = []
+        for _ in range(CAPTION_TRAIN_STEPS):
+            state, loss = step(state, batch, 0)
+            losses.append(float(loss))
+        out[name] = {"losses": losses, "checksums": checksums(to_jax_params(state.params))}
+    return out
+
+
 def train_fixture_errors(got: dict, want: dict) -> dict:
     """Largest relative differences of a replay from the recorded run:
     losses, checksums (each relative to the leaf's sum of |x|, or of x^2)
-    and batch statistics (relative to the largest recorded one)."""
+    and, where the run records them, batch statistics (relative to the
+    largest recorded one)."""
     loss = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
     assert sorted(got["checksums"]) == sorted(want["checksums"]), "parameter trees differ"
     leaf = 0.0
@@ -211,6 +293,8 @@ def train_fixture_errors(got: dict, want: dict) -> dict:
         g = got["checksums"][k]
         scale = (w[1], w[1], w[2], w[1])
         leaf = max(leaf, max(abs(a - b) / max(s, 1e-12) for a, b, s in zip(g, w, scale)))
+    if "batch_stats" not in want:
+        return {"loss": loss, "params": leaf}
     stats = 0.0
     for k, w in want["batch_stats"].items():
         w = np.asarray(w)

@@ -66,40 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _gpt2_config(size: str, vocab_size: int):
-    from zs_aac_tpu_torch.models.gpt2 import GPT2Config
-
-    if size == "tiny":
-        return GPT2Config(vocab_size=vocab_size, n_positions=128, n_embd=64,
-                          n_layer=2, n_head=4)
-    if size == "small":
-        return GPT2Config(vocab_size=vocab_size, n_positions=512, n_embd=256,
-                          n_layer=6, n_head=8)
-    return GPT2Config(vocab_size=max(vocab_size, 50257))
-
-
-def _make_tokenizer(tokenizer_path, records_paths):
-    from zs_aac_tpu_torch.data.banks import iter_bank
-    from zs_aac_tpu_torch.data.tokenizer import GPT2BPETokenizer, WordTokenizer
-
-    if tokenizer_path:
-        if tokenizer_path.endswith(".model"):
-            raise NotImplementedError(f"the SentencePiece tokenizer {_LATER}")
-        tok = GPT2BPETokenizer.from_dir(tokenizer_path)
-        return tok, tok.encode(".")[0]
-    corpus = []
-    for path in records_paths:
-        for rec in iter_bank(path):
-            cap = rec.get("caption")
-            if isinstance(cap, list):
-                corpus.extend(str(c["caption"]) for c in cap)
-            elif cap:
-                corpus.append(str(cap))
-    corpus.append("there are something in this audio.")
-    tok = WordTokenizer.from_corpus(corpus)
-    return tok, tok.stop_token_id
-
-
 @torch.no_grad()
 def main(argv=None):
     args = build_parser().parse_args(argv)
@@ -114,6 +80,7 @@ def main(argv=None):
     from zs_aac_tpu_torch.models.caption import CaptionConfig, caption_embeddings
     from zs_aac_tpu_torch.models.convert import from_jax_params
     from zs_aac_tpu_torch.models.gpt2 import quantize_gpt2_int8
+    from zs_aac_tpu_torch.train.train_prompt import _gpt2_config, _make_tokenizer
     from zs_aac_tpu_torch.utils.checkpoints import load_params
     from zs_aac_tpu_torch.utils.device import resolve_device
 

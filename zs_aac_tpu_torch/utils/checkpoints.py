@@ -12,7 +12,12 @@ orbax train-state directories are not read. ``load_ase_variables`` reads an
 ASE for inference from a train state or from a reference-layout checkpoint.
 
 The JAX package's ``best.pth`` / ``last.pth`` parameter snapshots (flax
-``serialization.to_bytes``: msgpack) are read without flax or msgpack.
+``serialization.to_bytes``: msgpack) are read and written without flax or
+msgpack: ``load_params`` reads either package's, ``save_params`` writes the
+bytes flax writes for the same tree, so the JAX package's ``load_params(path,
+template)`` restores it. ``save_params_async`` copies every leaf to host
+memory before it returns (the optimizer updates the port's parameters in
+place) and writes in a thread; ``join_async_saves`` waits for the writes.
 
 flax writes the state dict as msgpack maps (lists become maps keyed "0",
 "1", ...), arrays as ext type 1 holding a msgpack ``(shape, dtype name,
@@ -28,11 +33,15 @@ from __future__ import annotations
 import dataclasses
 import os
 import struct
+import threading
 
 import numpy as np
 import torch
 
-__all__ = ["msgpack_unpackb", "load_params", "save_train_state", "restore_train_state",
+from zs_aac_tpu_torch.models.convert import to_jax_params
+
+__all__ = ["msgpack_unpackb", "msgpack_packb", "load_params", "save_params",
+           "save_params_async", "join_async_saves", "criterion_improver", "save_train_state", "restore_train_state",
            "restore_model_only", "load_ase_variables"]
 
 
@@ -210,3 +219,172 @@ def load_params(path: str):
     """A ``save_params`` snapshot -> nested dict of numpy arrays."""
     with open(path, "rb") as f:
         return msgpack_unpackb(f.read())
+
+
+def _pack_ext(out: list, code: int, data: bytes) -> None:
+    n = len(data)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(struct.pack(">Bb", fixext[n], code))
+    elif n < 1 << 8:
+        out.append(struct.pack(">BBb", 0xC7, n, code))
+    elif n < 1 << 16:
+        out.append(struct.pack(">BHb", 0xC8, n, code))
+    else:
+        out.append(struct.pack(">BIb", 0xC9, n, code))
+    out.append(data)
+
+
+def _pack_len(out: list, n: int, fix: int, fix_max: int, codes) -> None:
+    """A length header: the fix form below ``fix_max``, else 8/16/32-bit
+    (``codes`` has None where msgpack has no 8-bit form)."""
+    if n < fix_max:
+        out.append(struct.pack(">B", fix | n))
+    elif codes[0] is not None and n < 1 << 8:
+        out.append(struct.pack(">BB", codes[0], n))
+    elif n < 1 << 16:
+        out.append(struct.pack(">BH", codes[1], n))
+    else:
+        out.append(struct.pack(">BI", codes[2], n))
+
+
+def _pack_int(out: list, x: int) -> None:
+    if 0 <= x <= 0x7F or -32 <= x < 0:
+        out.append(struct.pack(">b" if x < 0 else ">B", x))
+    elif x >= 0:
+        for code, fmt, hi in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                              (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+            if x < hi:
+                out.append(struct.pack(">B", code) + struct.pack(fmt, x))
+                return
+        raise OverflowError(x)
+    else:
+        for code, fmt, lo in ((0xD0, ">b", -(1 << 7)), (0xD1, ">h", -(1 << 15)),
+                              (0xD2, ">i", -(1 << 31)), (0xD3, ">q", -(1 << 63))):
+            if x >= lo:
+                out.append(struct.pack(">B", code) + struct.pack(fmt, x))
+                return
+        raise OverflowError(x)
+
+
+def _ndarray_bytes(a: np.ndarray) -> bytes:
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be written")
+    return msgpack_packb((a.shape, a.dtype.name, a.tobytes("C")))
+
+
+def _pack(out: list, obj) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(obj)))
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_len(out, len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out.append(data)
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        data = bytes(obj)
+        _pack_len(out, len(data), 0, 0, (0xC4, 0xC5, 0xC6))
+        out.append(data)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} to msgpack")
+
+
+def msgpack_packb(obj) -> bytes:
+    """Encode ``obj`` as msgpack-python's ``packb`` does (bin type for bytes),
+    numpy arrays and scalars as flax's ext types 1 and 3."""
+    out: list = []
+    _pack(out, obj)
+    return b"".join(out)
+
+
+def _write(path: str, data: bytes) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}.{threading.get_ident()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def save_params(path: str, params) -> None:
+    """One msgpack snapshot of ``params`` (a port caption model or any tree
+    ``models.convert.to_jax_params`` takes) in the JAX package's layout: the
+    ``best.pth`` / ``last.pth`` of a captioner run dir. Written to a
+    temporary name, then renamed."""
+    _write(path, msgpack_packb(to_jax_params(params)))
+
+
+class _Save(threading.Thread):
+    """A snapshot's write; ``join`` re-raises what the write raised."""
+
+    def __init__(self, path: str, tree):
+        super().__init__()
+        self.path, self.tree, self.error = path, tree, None
+
+    def run(self):
+        try:
+            _write(self.path, msgpack_packb(self.tree))
+        except BaseException as e:  # re-raised by join in the caller's thread
+            self.error = e
+
+    def join(self, timeout=None):
+        super().join(timeout)
+        if self.error is not None:
+            raise self.error
+
+
+_ASYNC_SAVES: dict = {}
+
+
+def save_params_async(path: str, params) -> None:
+    """``save_params`` with the write in a background thread. Every leaf is
+    copied to host memory before this returns, so training may go on
+    updating the parameters in place. Writes to the same path are
+    serialized; call ``join_async_saves()`` before reading the files or
+    exiting."""
+    tree = to_jax_params(params)
+    prev = _ASYNC_SAVES.pop(path, None)
+    if prev is not None:
+        prev.join()
+    t = _Save(path, tree)
+    t.start()
+    _ASYNC_SAVES[path] = t
+
+
+def join_async_saves() -> None:
+    for path in list(_ASYNC_SAVES):
+        _ASYNC_SAVES.pop(path).join()
+
+
+def criterion_improver(mode: str):
+    """A closure that says whether a value beats the best seen so far (lower
+    for "loss", higher for "acc" and "score"; the first value always does)."""
+    if mode not in ("loss", "acc", "score"):
+        raise ValueError(f"unknown criterion mode {mode!r}")
+    best = float("inf") if mode == "loss" else float("-inf")
+
+    def inner(x: float) -> bool:
+        nonlocal best
+        better = x < best if mode == "loss" else x > best
+        if better:
+            best = x
+        return better
+
+    return inner
