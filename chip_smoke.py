@@ -151,7 +151,30 @@ which must pass:
     65,536 x 1024 fp32 bank with 4,096 queries, top-5: the neighbours' float64
     similarities within ``KNN_TOL`` of float64 numpy's top 5, the sets equal
     wherever the 5th and 6th similarities differ by more than ``KNN_TOL``,
-    records/s.
+    records/s;
+18. the Mistral-7B + LoRA multilingual captioner (no kernel of its own:
+    cuBLAS and ``torch._int_mm``): the committed tiny Mistral captioner
+    (``testdata/tiny_mistral``, SentencePiece tokenizer) through the port's
+    ``predict_multilingual`` in fp32, float and ``--q8 --fuse_qkv on``, with
+    the en/zh/fr captions the JAX package recorded, and its LoRA train
+    record within ``TRAIN_FIXTURE_TOL``; Mistral-7B-v0.1 at its published
+    widths (seeded bf16, LoRA r=8 alpha=16 with nonzero ``b``, MLP mapper
+    1024 -> 20480 -> 40960, 10 prefix + 3 tag positions) decoding 60 tokens
+    with EOS never met: bf16 with the float cache at B=64, w8a8 with the int8
+    cache at B=64 and at B=256 unfused and fused (``--fuse_qkv auto``'s
+    choice there); ``tests/test_mistral.py``'s int8 bounds at its own config
+    (``MISTRAL_INT8_TOL``); teacher-forced on the bf16 decode's tokens, the
+    bf16 steps against the bf16 ``mistral_forward`` within
+    ``MISTRAL_FLOOR_FACTOR`` times the bf16 forward's distance from its fp32
+    evaluation, w8a8 against bf16 and the int8 cache against the float cache
+    within ``MISTRAL_INT8_7B_TOL`` of max|logit| (also printed with the
+    widths cut to 2 layers); fused and unfused tokens identical; tokens/s, captions/s, ms a token beside the
+    step's byte bound, peak memory, a profile's idle share; the LoRA train
+    step at B=40 x 40 tokens (bf16 base, fp32 mapper and LoRA, AdamW, 5
+    steps by CUDA events: samples/s, peak memory, share of the bf16 flop
+    bound, the base unchanged) and its gradients at the same widths cut to 2
+    layers against an fp32 evaluation (``LORA_GRAD_COSINE_MIN``,
+    ``LORA_GRAD_NORM_TOL``).
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -2616,6 +2639,467 @@ def _caption_knn(N=65536, Q=4096, E=1024, k=5):
     check(sims_err <= KNN_TOL, "k-NN similarities off float64")
 
 
+# Phase 18 (the Mistral-7B + LoRA captioner). The JAX tests' bound on the
+# int8 approximations, held at their config (hidden 32, 2 layers) on the
+# card: w8/w8a8 weights and the int8 KV cache each within 3% of the largest
+# |logit| (tests/test_mistral.py:192,232). At 7B widths on seeded weights
+# the approximations are larger (this phase on an NVIDIA H100 80GB HBM3 at
+# 700 W: w8a8 0.078 of max|logit| with the widths cut to 2 layers, 0.34 at
+# 32; per-row activation quantization over 4096 and 14,336 inputs, amplified
+# through the random layers, as bf16's own rounding is: the bf16 forward
+# lies 0.0955 from its fp32 evaluation at 32 layers; PERF.md section 6).
+# There they are held to MISTRAL_INT8_7B_TOL, above those measurements and
+# under the error of a broken path (the phase prints it: each row's logits
+# against another row's, unrelated prompts, differ by more than their
+# maximum); and the bf16 decode steps against the bf16 forward within
+# MISTRAL_FLOOR_FACTOR times the forward's own distance from its fp32
+# evaluation.
+MISTRAL_INT8_TOL = 0.03
+MISTRAL_INT8_7B_TOL = 0.5
+MISTRAL_INT8_POSITIONS = 20    # the int8 paths are teacher-forced over these
+MISTRAL_FLOOR_FACTOR = 2.0
+# The LoRA step's gradients in bf16 (frozen bf16 base, fp32 mapper and LoRA)
+# against the same step evaluated in fp32, per leaf.
+LORA_GRAD_COSINE_MIN = 0.99
+LORA_GRAD_NORM_TOL = 0.05
+MISTRAL_NEW_TOKENS = 60
+MISTRAL_TAG = (523, 269, 28767)   # three token ids standing for the "<en>" tag
+
+
+def mistral_param_bytes(params):
+    """Bytes of a decode step's weight reads: every layer's projections and
+    norms, the final norm and the lm_head (float or int8 with its scales);
+    the embedding table is only gathered."""
+    from zs_aac_tpu_torch.train.optim import tree_leaves
+    from zs_aac_tpu_torch.train.caption_trainer import tensor_tree
+
+    tree = tensor_tree({k: v for k, v in params.items() if k != "embed"})
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def mistral_train_flops(cfg, B, L, P, prefix_size):
+    """Matmul flops of one LoRA train step (2 a multiply-add), bf16 and
+    fp32 apart: the frozen base's projections, attention and lm_head over
+    B x L positions, forward and the activations' backward (no weight
+    gradient); LoRA's low-rank products (forward, both backward products);
+    the fp32 MLP mapper prefix_size -> D P / 2 -> D P, forward and backward."""
+    D, I, V, r = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, 8
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    proj = D * (D + 2 * kvd) + D * D + 3 * D * I
+    per_tok = cfg.n_layers * (2 * proj + 4 * L * D) + 2 * D * V
+    lora = cfg.n_layers * 2 * r * (4 * D + 2 * kvd + 3 * D + 3 * I) + 2 * r * (D + V)
+    bf16 = B * L * (2 * per_tok + 3 * lora)
+    mapper = prefix_size * D * P // 2 + (D * P // 2) * D * P
+    return bf16, 3 * 2 * B * mapper
+
+
+def _mistral_teacher_forced(params, cfg, emb, tokens, lora, q8_cache):
+    """Logits [B, n, V] of the prefill's last position and of steps fed the
+    decode's own tokens 0..n-2: what the decode saw at each of its n
+    choices."""
+    import torch
+
+    from zs_aac_tpu_torch.models.mistral import (init_mistral_cache, init_mistral_cache_q8,
+                                                 mistral_embed, mistral_prefill, mistral_step)
+
+    B, Lp, _ = emb.shape
+    n = tokens.shape[1]
+    cache = (init_mistral_cache_q8(cfg, B, Lp + n, "cuda") if q8_cache
+             else init_mistral_cache(cfg, B, Lp + n, emb.dtype, "cuda"))
+    logits, cache = mistral_prefill(params, cfg, emb, cache, lora)
+    out = [logits[:, -1]]
+    for i in range(n - 1):
+        logits, cache = mistral_step(params, cfg, mistral_embed(params, tokens[:, i]), cache,
+                                     Lp + i, lora)
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _mistral_fixture():
+    """(a) The committed tiny Mistral captioner on the card in fp32: the
+    port's predict driver, float and --q8 --fuse_qkv on, and the LoRA step's
+    record."""
+    import os
+
+    from zs_aac_tpu_torch import testdata
+    from zs_aac_tpu_torch.train.predict_multilingual import main as predict
+
+    with tempfile.TemporaryDirectory() as root:
+        staged = testdata.stage_tiny_mistral(root)
+        for mode, flags in (("float", []), ("q8_fused", ["--q8", "--fuse_qkv", "on"])):
+            run = os.path.join(root, f"run_{mode}")
+            import shutil
+            shutil.copytree(staged["run_dir"], run)
+            predict(["--test_dir", run, "--data", staged["test_bank"]] + flags)
+            with open(os.path.join(run, "output.txt")) as f:
+                got = json.load(f)["predictions"]
+            want = staged["expected"]["captions"][mode]
+            n_same = sum(g == w for g, w in zip(got, want))
+            print(f"[mistral] tiny_mistral predict_multilingual {mode} on cuda (fp32): "
+                  f"{n_same}/{len(want)} clips' en/zh/fr captions as the JAX package recorded",
+                  flush=True)
+            check(got == want, f"tiny Mistral captions differ from JAX's ({mode})")
+        want = staged["expected"]["train"]
+    got = testdata.replay_mistral_train_fixture(device="cuda")
+    err = testdata.train_fixture_errors(got, want)
+    print(f"[mistral] tiny_mistral LoRA train record, {testdata.MISTRAL_TRAIN_STEPS} steps on "
+          f"cuda: losses {[round(v, 7) for v in got['losses']]} (JAX "
+          f"{[round(v, 7) for v in want['losses']]}); relative errors {err} (tol "
+          f"{ {k: TRAIN_FIXTURE_TOL[k] for k in err} })", flush=True)
+    check(all(err[k] <= TRAIN_FIXTURE_TOL[k] for k in err),
+          "the tiny Mistral train record differs from the JAX-recorded run")
+
+
+def _mistral_jax_bounds():
+    """tests/test_mistral.py's int8 bounds at its config, on the card: w8 and
+    w8a8 forwards vs fp32, and a prefill + 4 steps over the int8 KV cache vs
+    the float cache, each within MISTRAL_INT8_TOL of max|logit|."""
+    import torch
+
+    from zs_aac_tpu_torch.models.mistral import (MistralConfig, init_mistral,
+                                                 init_mistral_cache, init_mistral_cache_q8,
+                                                 mistral_embed, mistral_forward,
+                                                 mistral_prefill, mistral_step,
+                                                 quantize_mistral_int8)
+
+    cfg = MistralConfig(vocab_size=120, hidden_size=32, n_layers=2, n_heads=4, n_kv_heads=2,
+                        intermediate_size=64, sliding_window=64, max_positions=64)
+    params = init_mistral(cfg, 0, "cuda", torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    emb = torch.randn(2, 5, 32, generator=g, device="cuda")
+    out = {}
+    with torch.no_grad():
+        ref = mistral_forward(params, cfg, emb)
+        for mode in ("w8", "w8a8"):
+            out[mode] = _rel(mistral_forward(quantize_mistral_int8(params, mode), cfg, emb), ref)
+        prompt = emb * 0.1
+        tail = torch.randint(0, 120, (2, 4), generator=g, device="cuda")
+        cf, cq = init_mistral_cache(cfg, 2, 16, torch.float32, "cuda"), \
+            init_mistral_cache_q8(cfg, 2, 16, "cuda")
+        lf, cf = mistral_prefill(params, cfg, prompt, cf)
+        lq, cq = mistral_prefill(params, cfg, prompt, cq)
+        denom = lf.abs().max()
+        worst = 0.0
+        for t in range(4):
+            e = mistral_embed(params, tail[:, t])
+            lf, cf = mistral_step(params, cfg, e, cf, 5 + t)
+            lq, cq = mistral_step(params, cfg, e, cq, 5 + t)
+            worst = max(worst, ((lq - lf).abs().max() / denom).item())
+        out["int8 cache"] = worst
+    print(f"[mistral] tests/test_mistral.py's config (hidden 32, 2 layers) on the card, "
+          f"max|diff| / max|logit| against fp32: {out} (tol {MISTRAL_INT8_TOL})", flush=True)
+    check(all(v <= MISTRAL_INT8_TOL for v in out.values()), "int8 paths off the JAX tests' bound")
+
+
+def _mistral_decode(params, cfg, emb, lora, q8_cache):
+    """One full greedy decode, EOS never met: (tokens, lengths, wall s,
+    device ms by CUDA events)."""
+    import torch
+
+    from zs_aac_tpu_torch.decoding.greedy import mistral_greedy_decode
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    toks, lens = mistral_greedy_decode(params, cfg, emb, lora, MISTRAL_NEW_TOKENS, -1,
+                                       q8_cache=q8_cache)
+    end.record()
+    torch.cuda.synchronize()
+    return toks, lens, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def phase_mistral():
+    """Phase 18: the Mistral-7B + LoRA multilingual captioner (slice 12)."""
+    import dataclasses
+
+    import torch
+
+    from zs_aac_tpu_torch.models.caption_mistral import (MistralCaptionConfig,
+                                                         mistral_caption_embeddings)
+    from zs_aac_tpu_torch.models.convert import tree_map
+    from zs_aac_tpu_torch.models.mapper import init_mapper_, make_mapper
+    from zs_aac_tpu_torch.models.mistral import (MistralConfig, init_lora, init_mistral,
+                                                 mistral_embed, mistral_forward,
+                                                 quantize_mistral_int8)
+
+    t_phase = time.perf_counter()
+    _mistral_fixture()
+    _mistral_jax_bounds()
+    t_fixture = time.perf_counter() - t_phase
+
+    # (b) serving at Mistral-7B-v0.1's widths, seeded bf16 weights
+    cfg = MistralConfig()
+    ccfg = MistralCaptionConfig(prefix_length=10, prefix_size=1024, clip_length=10, islang=3,
+                                mistral=cfg)
+    t0 = time.perf_counter()
+    base = init_mistral(cfg, 0, "cuda", torch.bfloat16)
+    lora = init_lora(cfg, 8, 16, 1, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for site in [s for layer in lora["layers"] for s in layer.values()] + [lora["lm_head"]]:
+        site["b"].normal_(0.0, 0.02, generator=g)        # nonzero b: the deltas do work
+    mapper = init_mapper_(make_mapper("mlp", 1024, cfg.hidden_size, 10, device="cuda"), 3)
+    params = {"mapper": mapper, "lora": lora, "mistral": base}
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [base["embed"], base["norm"], base["lm_head"]]
+                   + [w for l in base["layers"] for p in l.values()
+                      for w in (p.values() if isinstance(p, dict) else [p])])
+    print(f"[mistral] Mistral-7B-v0.1 widths (vocab {cfg.vocab_size}, hidden {cfg.hidden_size}, "
+          f"{cfg.n_layers} layers, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads, head dim "
+          f"{cfg.head_dim}, intermediate {cfg.intermediate_size}): {n_params / 1e9:.3f} B "
+          f"parameters, seeded bf16 on the card; LoRA r=8 alpha=16 (b ~ N(0, 0.02)), MLP mapper "
+          f"1024 -> 20480 -> 40960 fp32; set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def prompts(B, seed):
+        gp = torch.Generator(device="cuda").manual_seed(seed)
+        prefix = torch.randn(B, 1024, generator=gp, device="cuda")
+        prefix = prefix / prefix.norm(dim=-1, keepdim=True)
+        tags = torch.tensor(MISTRAL_TAG, device="cuda")[None].expand(B, -1)
+        with torch.no_grad():
+            return mistral_caption_embeddings(params, ccfg, prefix, None, tags)
+
+    emb64, emb256 = prompts(64, 4), prompts(256, 5)
+    Lp = emb64.shape[1]
+    n = MISTRAL_NEW_TOKENS
+
+    lora_bytes = sum(t.numel() * t.element_size() for layer in lora["layers"]
+                     for site in layer.values() for t in site.values())
+    lora_bytes += sum(t.numel() * t.element_size() for t in lora["lm_head"].values())
+
+    def report(name, B, toks, lens, wall, dev_ms, weights):
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()) and int(lens.min()) == n,
+              f"{name}: tokens out of range or a decode stopped early")
+        mean_T = Lp + n / 2
+        kv_bytes = (1 + 4 / cfg.head_dim) if "int8" in name else 2
+        cache = cfg.n_layers * 2 * B * cfg.n_kv_heads * mean_T * cfg.head_dim * kv_bytes
+        wbytes = mistral_param_bytes(weights) + lora_bytes
+        bound = (wbytes + cache) / H100_BYTES_PER_S * 1e3
+        token_ms = wall / n * 1e3
+        print(f"[mistral] {name} B={B} Lp={Lp}, {n} tokens (prefill + {n - 1} steps): "
+              f"{wall * 1e3:.1f} ms wall ({dev_ms:.1f} ms by CUDA events) -> "
+              f"{B * n / wall:.1f} tokens/s, {B / wall:.2f} captions/s, {token_ms:.2f} ms a "
+              f"token; a step's byte bound {bound:.2f} ms (weights + LoRA "
+              f"{wbytes / 1e9:.2f} GB, cache at the mean length {cache / 1e9:.3f} GB, at "
+              f"{H100_BYTES_PER_S / 1e12} TB/s): {bound / token_ms:.1%} of it", flush=True)
+
+    from zs_aac_tpu_torch.decoding.greedy import mistral_greedy_decode
+    with torch.no_grad():
+        mistral_greedy_decode(base, cfg, emb64[:8], lora, 4, -1)          # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        toks, lens, wall, dev_ms = _mistral_decode(base, cfg, emb64, lora, False)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        report("bf16 float cache", 64, toks, lens, wall, dev_ms, base)
+        print(f"[mistral] peak memory {peak:.2f} GiB (bf16 base + fp32 mapper + LoRA + cache)",
+              flush=True)
+        # gates, teacher-forced on the bf16 decode's own tokens
+        tf_bf16 = _mistral_teacher_forced(base, cfg, emb64, toks, lora, False)
+        own = (tf_bf16.argmax(-1) == toks).float().mean().item()
+        check(own >= 0.99, f"the decode's tokens are its teacher-forced argmax at {own:.3f}")
+        unrelated = _rel(tf_bf16.roll(1, 0), tf_bf16)
+        full = torch.cat([emb64, mistral_embed(base, toks[:, :-1])], dim=1)
+        fwd16 = mistral_forward(base, cfg, full, None, lora)[:, Lp - 1:]
+        base32 = tree_map(lambda t: t.float(), base)
+        floor = _rel(fwd16, mistral_forward(base32, cfg, full.float(), None, lora)[:, Lp - 1:])
+        del base32, full
+        torch.cuda.empty_cache()
+        d_step = _rel(tf_bf16, fwd16)
+        del fwd16
+        torch.cuda.empty_cache()
+        w8a8 = quantize_mistral_int8(base, "w8a8", fuse=False)
+        approx, m = {}, MISTRAL_INT8_POSITIONS
+        for depth in (2, cfg.n_layers):
+            cut = dataclasses.replace(cfg, n_layers=depth)
+            lo = {**lora, "layers": lora["layers"][:depth]}
+            b16, q = ({**p, "layers": p["layers"][:depth]} for p in (base, w8a8))
+            ref = (tf_bf16[:, :m] if depth == cfg.n_layers
+                   else _mistral_teacher_forced(b16, cut, emb64, toks[:, :m], lo, False))
+            tf_w8 = _mistral_teacher_forced(q, cut, emb64, toks[:, :m], lo, False)
+            tf_q8 = _mistral_teacher_forced(q, cut, emb64, toks[:, :m], lo, True)
+            approx[depth] = (_rel(tf_w8, ref), _rel(tf_q8, tf_w8))
+            if depth == cfg.n_layers:
+                agree = (tf_q8.argmax(-1) == toks[:, :m]).float().mean().item()
+            del ref, tf_w8, tf_q8
+        del tf_bf16
+        print(f"[mistral] teacher-forced on the bf16 decode's tokens (B=64, {n} positions; "
+              f"max|diff| / max|logit|): the bf16 forward vs its fp32 evaluation {floor:.4f}; "
+              f"bf16 steps vs the bf16 forward {d_step:.4f} (tol {MISTRAL_FLOOR_FACTOR} x "
+              f"{floor:.4f} = {MISTRAL_FLOOR_FACTOR * floor:.4f}); over the first {m} positions, "
+              f"w8a8 vs bf16 and w8a8 + int8 cache vs w8a8 + float cache at 2 layers "
+              f"{approx[2][0]:.4f} / "
+              f"{approx[2][1]:.4f}, at {cfg.n_layers} {approx[cfg.n_layers][0]:.4f} / "
+              f"{approx[cfg.n_layers][1]:.4f} (tol {MISTRAL_INT8_7B_TOL}; another row's logits "
+              f"{unrelated:.4f}); argmax = the "
+              f"decode's token at {own:.3f} of positions (bf16 steps again), {agree:.3f} (w8a8 + "
+              f"int8 cache)", flush=True)
+        check(d_step <= MISTRAL_FLOOR_FACTOR * floor, "bf16 decode steps differ from the forward")
+        check(max(approx[cfg.n_layers]) <= MISTRAL_INT8_7B_TOL,
+              "the int8 paths are off the bf16 path at 7B widths")
+
+        toks, lens, wall, dev_ms = _mistral_decode(w8a8, cfg, emb64, lora, True)
+        report("w8a8 + int8 cache", 64, toks, lens, wall, dev_ms, w8a8)
+        # B=256: unfused then fused (what --fuse_qkv auto picks there), twice each
+        fused = None
+        runs = {"unfused": [], "fused": []}
+        for rep in range(2):
+            for name in ("unfused", "fused"):
+                if name == "fused" and fused is None:
+                    fused = quantize_mistral_int8(base, "w8a8", fuse=True)
+                q = w8a8 if name == "unfused" else fused
+                runs[name].append(_mistral_decode(q, cfg, emb256, lora, True))
+        for name in ("unfused", "fused"):
+            best = min(runs[name], key=lambda r: r[2])
+            report(f"w8a8 + int8 cache {name}", 256, *best, w8a8 if name == "unfused" else fused)
+        same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for a, b in zip(runs["unfused"], runs["fused"]))
+        walls = {k: [round(r[2] * 1e3, 1) for r in v] for k, v in runs.items()}
+        print(f"[mistral] B=256 fused vs unfused w8a8 + int8 cache: tokens identical {same}; "
+              f"walls (ms) {walls}; fused/unfused best {min(walls['fused']) / min(walls['unfused']):.3f}",
+              flush=True)
+        check(same, "fused and unfused w8a8 decodes differ")
+        del w8a8, runs
+        wall_prof, kernels = profiled_kernels(
+            lambda: mistral_greedy_decode(fused, cfg, emb256, lora, 16, -1, q8_cache=True))
+        busy = sum(v[0] for v in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"[profile] a 16-token w8a8 + int8 cache fused decode at B=256 under torch.profiler: wall "
+              f"{wall_prof:.1f} ms, device busy {busy:.1f} ms (idle {1 - busy / wall_prof:.1%}), "
+              f"{sum(v[1] for v in kernels.values())} kernels; top: "
+              + "; ".join(f"{v[0]:.1f} ms x{v[1]} {k[:60]}" for k, v in top), flush=True)
+        del fused
+    torch.cuda.empty_cache()
+    t_serve = time.perf_counter() - t_phase - t_fixture
+    _mistral_train(params, cfg)
+    print(f"[mistral] phase 18 took {time.perf_counter() - t_phase:.1f} s (fixture and the "
+          f"JAX tests' bounds {t_fixture:.1f} s, 7B serving {t_serve:.1f} s, the LoRA step "
+          f"{time.perf_counter() - t_phase - t_fixture - t_serve:.1f} s)", flush=True)
+
+
+def _lora_grads(params, ccfg, batch, dtype):
+    """Loss and the mapper's and LoRA's gradients of one noise-0 step, the
+    base and the activations in ``dtype`` (mapper and LoRA stay fp32)."""
+    import copy
+
+    import torch
+
+    from zs_aac_tpu_torch.models.caption_mistral import (mistral_caption_loss,
+                                                         mistral_caption_train_logits)
+    from zs_aac_tpu_torch.models.convert import tree_map
+    from zs_aac_tpu_torch.train.caption_trainer import tensor_tree
+
+    p = {"mapper": copy.deepcopy(params["mapper"]).requires_grad_(True),
+         "lora": tree_map(lambda t: t.detach().clone().requires_grad_(t.ndim == 2),
+                          params["lora"]),
+         "mistral": tree_map(lambda t: t.detach().to(dtype), params["mistral"])}
+    leaves = _flat_tree(tensor_tree({"mapper": p["mapper"], "lora": {
+        k: v for k, v in p["lora"].items() if k not in ("r", "alpha")}}))
+    with torch.enable_grad():
+        logits = mistral_caption_train_logits(p, ccfg, batch["tokens"], batch["prefix"],
+                                              batch["mask"])
+        loss = mistral_caption_loss(logits, batch["tokens"], ccfg.islang)
+        got = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.item(), dict(zip(leaves, got))
+
+
+def _lora_batch(B, S, P, V, g):
+    import torch
+
+    lens = torch.randint(8, S + 1, (B,), generator=g, device="cuda")
+    pos = torch.arange(S, device="cuda")[None]
+    tokens = torch.randint(3, V, (B, S), generator=g, device="cuda") * (pos < lens[:, None])
+    tokens[:, :3] = torch.tensor(MISTRAL_TAG, device="cuda")
+    mask = torch.cat([torch.ones(B, P, device="cuda"), (pos < lens[:, None]).float()], dim=1)
+    prefix = torch.randn(B, 1024, generator=g, device="cuda")
+    return {"tokens": tokens, "mask": mask, "prefix": prefix / prefix.norm(dim=-1, keepdim=True)}
+
+
+def _mistral_train(params, cfg):
+    """(c) The LoRA train step at full width: B=40 x 40 caption tokens
+    behind the 10-token prefix, bf16 frozen base, fp32 mapper and LoRA,
+    AdamW; then the gradient gate on the same widths cut to 2 layers."""
+    import dataclasses
+
+    import torch
+
+    from zs_aac_tpu_torch.models.caption_mistral import MistralCaptionConfig
+    from zs_aac_tpu_torch.models.mistral import init_lora
+    from zs_aac_tpu_torch.train.caption_trainer import tensor_tree
+    from zs_aac_tpu_torch.train.optim import tree_leaves
+    from zs_aac_tpu_torch.train.train_prompt_multilingual import (MultilingualTrainState,
+                                                                  make_multilingual_optimizer,
+                                                                  make_multilingual_train_step)
+
+    B, S, P, steps = 40, 40, 10, 5
+    ccfg = MistralCaptionConfig(prefix_length=P, prefix_size=1024, clip_length=P, islang=3,
+                                max_seq_len=S, mistral=cfg)
+    batch = _lora_batch(B, S, P, cfg.vocab_size, torch.Generator(device="cuda").manual_seed(6))
+    train_params = {"mapper": params["mapper"], "lora": init_lora(cfg, 8, 16, 7, "cuda"),
+                    "mistral": params["mistral"]}
+    opt = make_multilingual_optimizer(1e-5)
+    state = MultilingualTrainState(train_params, opt.init(tensor_tree(train_params)), 0)
+    step = make_multilingual_train_step(ccfg, opt, 0.0, "cuda")
+    base_sum = float(sum(t.double().sum() for t in tree_leaves(tensor_tree(params["mistral"]))))
+    state, loss0 = step(state, batch, 0)                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, batch, 0)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = start.elapsed_time(end) / steps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bf16_flops, fp32_flops = mistral_train_flops(cfg, B, P + S, P, 1024)
+    bound_ms = (bf16_flops / H100_BF16_FLOPS + fp32_flops / H100_FP32_FLOPS) * 1e3
+    losses = [float(v) for v in [loss0] + losses]
+    print(f"[mistral] LoRA train step, B={B} x {P + S} positions, bf16 frozen base + fp32 "
+          f"mapper and LoRA, AdamW lr 1e-5, noise 0: losses {[round(v, 5) for v in losses]}; "
+          f"{step_ms:.2f} ms a step by CUDA events ({wall / steps * 1e3:.2f} ms host clock) -> "
+          f"{B / step_ms * 1e3:.1f} samples/s; peak memory {peak:.2f} GiB; "
+          f"{bf16_flops / 1e12:.2f} TFLOP bf16 + {fp32_flops / 1e12:.3f} TFLOP fp32 a step, "
+          f"bound {bound_ms:.2f} ms ({bound_ms / step_ms:.1%} of it)", flush=True)
+    check(all(math.isfinite(v) for v in losses), "non-finite LoRA loss")
+    check(losses[-1] < losses[0], "the LoRA loss did not fall over the steps")
+    after = float(sum(t.double().sum() for t in tree_leaves(tensor_tree(params["mistral"]))))
+    check(after == base_sum, "the LoRA step moved the frozen base")
+    _, pwall, dev_ms, events = profiled(lambda: step(state, batch, 0))
+    print(f"[profile] one LoRA train step under torch.profiler: wall {pwall:.2f} ms, device "
+          f"time {dev_ms:.2f} ms (device idle {1 - dev_ms / pwall:.1%} of the wall)", flush=True)
+    print(events.table(sort_by="cuda_time_total", row_limit=10), flush=True)
+    del state, step, opt
+
+    # gradient gate: the same widths cut to 2 layers (the cut), nonzero LoRA b
+    cut = dataclasses.replace(cfg, n_layers=2)
+    cut_cfg = dataclasses.replace(ccfg, mistral=cut)
+    base = params["mistral"]
+    cut_params = {"mapper": params["mapper"],
+                  "lora": {**params["lora"], "layers": params["lora"]["layers"][:2]},
+                  "mistral": {**base, "layers": base["layers"][:2]}}
+    _, g16 = _lora_grads(cut_params, cut_cfg, batch, torch.bfloat16)
+    _, g32 = _lora_grads(cut_params, cut_cfg, batch, torch.float32)
+    rows = []
+    for k in g32:
+        a, b = g16[k].double().reshape(-1), g32[k].double().reshape(-1)
+        rows.append((torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+                     a.norm().item() / b.norm().item(), k))
+    cos_min = min(rows)
+    ratio = max(rows, key=lambda r: abs(r[1] - 1))
+    print(f"[mistral] LoRA step gradients at the full widths cut to 2 layers (B={B}), bf16 vs "
+          f"fp32 over {len(rows)} leaves of the mapper and LoRA: cosine min {cos_min[0]:.5f} "
+          f"({cos_min[2]}), |norm ratio - 1| max {abs(ratio[1] - 1):.2e} ({ratio[2]}) "
+          f"(thresholds {LORA_GRAD_COSINE_MIN}, {LORA_GRAD_NORM_TOL})", flush=True)
+    check(cos_min[0] >= LORA_GRAD_COSINE_MIN, "bf16 LoRA gradients diverge from fp32")
+    check(abs(ratio[1] - 1) <= LORA_GRAD_NORM_TOL, "bf16 LoRA gradient norms differ from fp32")
+
+
 def main():
     import torch
 
@@ -2645,6 +3129,7 @@ def main():
     phase_magic_full_width()
     cnn_launches = phase_cnn_full_width()
     chain_launches = phase_caption_train()
+    phase_mistral()
 
     kernels = [{
         "name": "decode_attn_q8",

@@ -16,10 +16,12 @@ import torch
 import zs_aac_tpu_torch
 from zs_aac_tpu_torch.decoding import magic
 from zs_aac_tpu_torch.eval import zero_shot
-from zs_aac_tpu_torch.models import ase, bert, caption, cnns, convert, gpt2, htsat, mapper
+from zs_aac_tpu_torch.models import (ase, bert, caption, caption_mistral, cnns, convert, gpt2,
+                                     htsat, mapper, mistral)
 from zs_aac_tpu_torch.pipeline import extract, related
-from zs_aac_tpu_torch.train import (caption_trainer, contrastive, finetune, optim, predict_prompt,
-                                    pretrain, train_prompt)
+from zs_aac_tpu_torch.train import (caption_trainer, contrastive, finetune, optim,
+                                    predict_multilingual, predict_prompt, pretrain, train_prompt,
+                                    train_prompt_multilingual)
 from zs_aac_tpu_torch.utils import device as device_mod
 from zs_aac_tpu_torch.utils import memory
 
@@ -39,7 +41,10 @@ def test_importing_every_module_loads_no_jax():
                                                      "train_prompt", "caption_trainer")}
     captioner = {"zs_aac_tpu_torch." + m for m in ("pipeline.related", "utils.noise",
                                                    "utils.memory", "data.prompts")}
-    assert kernels | train | captioner <= set(mods) and len(mods) >= 53
+    multilingual = {"zs_aac_tpu_torch." + m for m in (
+        "data.sentencepiece", "models.mistral", "models.caption_mistral",
+        "train.predict_multilingual", "train.train_prompt_multilingual")}
+    assert kernels | train | captioner | multilingual <= set(mods) and len(mods) >= 58
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
@@ -58,12 +63,17 @@ def test_importing_every_module_loads_no_jax():
                                     "zs_aac_tpu_torch.pipeline.related",
                                     "zs_aac_tpu_torch.utils.noise",
                                     "zs_aac_tpu_torch.utils.memory",
-                                    "zs_aac_tpu_torch.data.prompts"])
+                                    "zs_aac_tpu_torch.data.prompts",
+                                    "zs_aac_tpu_torch.data.sentencepiece",
+                                    "zs_aac_tpu_torch.models.mistral",
+                                    "zs_aac_tpu_torch.models.caption_mistral",
+                                    "zs_aac_tpu_torch.train.predict_multilingual",
+                                    "zs_aac_tpu_torch.train.train_prompt_multilingual"])
 def test_slice_modules_import_no_jax_pandas_or_yaml(module):
-    """The PANNs towers, the zero-shot CLI and the captioner's training
-    modules load in a fresh interpreter without JAX, flax, optax, the JAX
-    package, pandas or yaml (the card machine has neither of the last
-    two)."""
+    """The PANNs towers, the zero-shot CLI, the captioner's training modules
+    and the Mistral captioner's load in a fresh interpreter without JAX,
+    flax, optax, the JAX package, pandas or yaml (the card machine has
+    neither of the last two)."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
             "print(sorted({n.split('.')[0] for n in sys.modules} & {'jax', 'jaxlib', 'flax', "
             "'optax', 'zs_aac_tpu', 'pandas', 'yaml'}))")
@@ -85,6 +95,10 @@ _CAPTION = caption.CaptionConfig(prefix_size=8, prefix_length=2,
                                  gpt2=gpt2.GPT2Config(vocab_size=8, n_positions=8, n_embd=8,
                                                       n_layer=1, n_head=2))
 _ADAM = optim.get_optimizer(lambda step: 1e-3, "adam")
+_MISTRAL = mistral.MistralConfig(vocab_size=8, hidden_size=8, n_layers=1, n_heads=2, n_kv_heads=1,
+                                 intermediate_size=8)
+_MISTRAL_CAPTION = caption_mistral.MistralCaptionConfig(prefix_size=8, prefix_length=2,
+                                                        mistral=_MISTRAL)
 
 # name -> (function, a call of it that takes the default device)
 ENTRY_POINTS = {
@@ -134,6 +148,23 @@ ENTRY_POINTS = {
                        lambda: list(related.attach_related(np.zeros((2, 4), np.float32), []))),
     "run_validation": (train_prompt.run_validation,
                        lambda: train_prompt.run_validation({}, _CAPTION, [], None, 0, {})),
+    "init_mistral": (mistral.init_mistral, lambda: mistral.init_mistral(_MISTRAL)),
+    "convert_mistral": (mistral.convert_mistral,
+                        lambda: mistral.convert_mistral({}, _MISTRAL)),
+    "init_lora": (mistral.init_lora, lambda: mistral.init_lora(_MISTRAL)),
+    "init_mistral_cache": (mistral.init_mistral_cache,
+                           lambda: mistral.init_mistral_cache(_MISTRAL, 1, 4)),
+    "init_mistral_cache_q8": (mistral.init_mistral_cache_q8,
+                              lambda: mistral.init_mistral_cache_q8(_MISTRAL, 1, 4)),
+    "init_mistral_caption": (caption_mistral.init_mistral_caption,
+                             lambda: caption_mistral.init_mistral_caption(_MISTRAL_CAPTION)),
+    "make_multilingual_train_step": (
+        train_prompt_multilingual.make_multilingual_train_step,
+        lambda: train_prompt_multilingual.make_multilingual_train_step(_MISTRAL_CAPTION, _ADAM)),
+    "run_multilingual_validation": (
+        train_prompt_multilingual.run_multilingual_validation,
+        lambda: train_prompt_multilingual.run_multilingual_validation(
+            {"mistral": {"lm_head": None}}, _MISTRAL_CAPTION, [], None, {})),
 }
 
 
@@ -163,6 +194,21 @@ def test_caption_drivers_default_to_cuda_and_raise_without_it(monkeypatch, tmp_p
                            "--out_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         related.main(["--input_path", "none.pkl", "--output_path", str(tmp_path / "o.pkl")])
+
+
+@pytest.mark.parametrize("driver", ["predict", "train"])
+def test_multilingual_drivers_default_to_cuda_and_raise_without_it(driver, monkeypatch,
+                                                                   tmp_path):
+    if driver == "predict":
+        mod, argv = predict_multilingual, ["--test_dir", str(tmp_path), "--data", "none.pkl"]
+    else:
+        mod, argv = train_prompt_multilingual, ["--data", "none.pkl", "--valdata", "none.pkl",
+                                                "--out_dir", str(tmp_path)]
+    assert mod.build_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("flag", ["--bf16_softmax"])

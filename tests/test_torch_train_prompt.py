@@ -14,7 +14,8 @@
   the same captions, greedy and ``--isbeam``.
 - ``--noise_variance 0.016 --use_related_text`` (over a bank that
   ``pipeline/related.py`` wrote) and ``--sound_effect`` runs finish with
-  finite losses; ``--data_parallel`` and a ``.model`` tokenizer raise.
+  finite losses; ``--data_parallel`` raises, and a SentencePiece ``.model``
+  tokenizer trains.
 
 Each run gets its own ``--out_dir``: both drivers name the run dir by the
 second.
@@ -227,7 +228,22 @@ def test_related_text_with_noise_and_sound_effect_runs(banks, tmp_path):
 
 @pytest.mark.parametrize("extra", [["--data_parallel"], ["--tokenizer", "spm.model"]])
 def test_later_slices_raise(banks, tmp_path, extra):
+    """``--data_parallel`` (multi-GPU, a later slice) raises. A SentencePiece
+    ``.model`` tokenizer was refused the same way until the Mistral slice
+    ported it: now the driver trains with one (finite losses, the run's
+    vocabulary the model's)."""
+    from zs_aac_tpu_torch import testdata
     from zs_aac_tpu_torch.train.train_prompt import main as t_train
 
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_train(_driver_args(banks, str(tmp_path), "--device", "cpu", *extra))
+    if extra[0] == "--data_parallel":
+        with pytest.raises(NotImplementedError, match="later slice"):
+            t_train(_driver_args(banks, str(tmp_path), "--device", "cpu", *extra))
+        return
+    spm = str(tmp_path / extra[1])
+    tok = testdata.write_word_bpe_model(spm, " ".join(CAPTIONS).split())
+    run = t_train(_driver_args(banks, str(tmp_path / "runs"), "--device", "cpu",
+                               "--tokenizer", spm, "--max_iters", "3"))
+    _, losses = _val_scores(run)
+    assert losses and all(math.isfinite(v) for v in losses), losses
+    params = json.load(open(os.path.join(run, "params.json")))
+    assert params["tokenizer"] == spm and params["gpt2_vocab_size"] == tok.vocab_size

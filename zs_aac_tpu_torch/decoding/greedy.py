@@ -10,6 +10,10 @@ steps. One cache of ``Lp + entry_length`` rows replaces the JAX package's
 staged cache (a TPU layout choice; each step reads only its valid rows
 here). The loop leaves early once every row has stopped, checking every
 ``CHECK_EVERY`` steps so that it does not wait on the device each step.
+
+``mistral_greedy_decode`` is the Mistral captioner's decode (eos 2, at most
+60 new tokens, the EOS itself not emitted), over the float or the int8 KV
+cache, with the same full-length cache and early exit.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from zs_aac_tpu_torch.models.gpt2 import (
 )
 from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8
 
-__all__ = ["CHECK_EVERY", "greedy_decode", "greedy_decode_q8"]
+__all__ = ["CHECK_EVERY", "greedy_decode", "greedy_decode_q8", "mistral_greedy_decode"]
 
 CHECK_EVERY = 8  # steps between host checks for "every row has stopped"
 
@@ -80,3 +84,52 @@ def greedy_decode_q8(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
         params, prefix_embeds, entry_length, stop_token_id, extra_stop_id, cache,
         lambda e, c: gpt2_prefill_q8(params, cfg, e, c),
         lambda x, c, idx: gpt2_step_q8(params, cfg, x, c, idx, attention))
+
+
+@torch.no_grad()
+def mistral_greedy_decode(params: dict, cfg, prefix_embeds: torch.Tensor, lora=None,
+                          max_new_tokens: int = 60, eos_token_id: int = 2, *,
+                          q8_cache: bool = False):
+    """Batched greedy decode of the Mistral captioner (``cfg`` a
+    ``MistralConfig``; ``params`` float or ``quantize_mistral_int8``'s).
+    Returns (tokens [B, max_new_tokens] int64, lengths [B] int64): a row's
+    tokens up to its EOS, which is not emitted, then 0; ``lengths`` counts
+    the steps each row was still running. ``q8_cache`` serves over the int8
+    KV cache."""
+    from zs_aac_tpu_torch.models.mistral import (init_mistral_cache, init_mistral_cache_q8,
+                                                 mistral_embed, mistral_prefill, mistral_step)
+
+    B, Lp, _ = prefix_embeds.shape
+    dev = prefix_embeds.device
+    if lora is not None:
+        # the matmul sites cast LoRA's a/b to the activation dtype; do it once
+        lora = _cast_matrices(lora, prefix_embeds.dtype)
+    T = Lp + max_new_tokens
+    cache = (init_mistral_cache_q8(cfg, B, T, dev) if q8_cache
+             else init_mistral_cache(cfg, B, T, prefix_embeds.dtype, dev))
+    logits, cache = mistral_prefill(params, cfg, prefix_embeds, cache, lora=lora)
+    cur = logits[:, -1].argmax(dim=-1)
+    tokens = torch.zeros(B, max_new_tokens, dtype=torch.int64, device=dev)
+    lengths = torch.zeros(B, dtype=torch.int64, device=dev)
+    finished = cur == eos_token_id
+    for i in range(max_new_tokens):
+        if i % CHECK_EVERY == 0 and bool(finished.all()):
+            break
+        tokens[:, i] = torch.where(finished, 0, cur)
+        lengths += (~finished).long()
+        if i == max_new_tokens - 1:
+            break     # the last step's logits would choose no token
+        logits, cache = mistral_step(params, cfg, mistral_embed(params, cur), cache, Lp + i,
+                                     lora=lora)
+        cur = logits.argmax(dim=-1)
+        finished = finished | (cur == eos_token_id)
+    return tokens, lengths
+
+
+def _cast_matrices(tree, dtype):
+    """LoRA's a/b matrices in ``dtype`` (the 0-d ``r``/``alpha`` kept)."""
+    if isinstance(tree, dict):
+        return {k: _cast_matrices(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast_matrices(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.ndim == 2 else tree

@@ -12,6 +12,12 @@ returns the port's parameters on ``device``:
 - a caption-model tree {"mapper", "gpt2", ["sound_effect"],
   ["cross_attention"]} -> {"mapper": module, "gpt2": dict, ["sound_effect":
   MLP], ["cross_attention": module]};
+- a Mistral captioner tree {"mapper", "lora", ["mistral"]} (a ``best.pth``
+  holds the first two) -> {"mapper": module, "lora": dict, ["mistral":
+  dict]}: LoRA's lists of layers and its 0-d ``r``/``alpha`` leaves, the
+  base float or int8 (``{"w", "scale"|"scale_a8"}`` leaves, laid out and
+  the ``lm_head`` padded as ``models.mistral`` does); a Mistral tree alone
+  {"embed", "layers", "norm", "lm_head"} likewise;
 - a variable tree ``{"params", "batch_stats"}`` (ASE, HTSAT, BERT) -> the same
   tree of tensors: the port keeps the JAX layouts (flax Dense ``[in, out]``,
   conv HWIO, LayerNorm ``scale``/``bias``, BatchNorm ``mean``/``var``).
@@ -19,7 +25,8 @@ returns the port's parameters on ``device``:
 ``to_jax_params(params)`` is the inverse for caption models and their parts:
 the port's modules and dicts of tensors back to the JAX package's layout, as
 numpy copies in nested dicts (lists keyed "0", "1", ..., as flax's
-``to_state_dict`` writes them), ready for ``utils.checkpoints.save_params``.
+``to_state_dict`` writes them), ready for ``utils.checkpoints.save_params``;
+a Mistral base's int8 ``lm_head`` is cut back to the vocabulary.
 
 ``convert_cnn``, ``convert_resnet38``, ``convert_htsat`` and ``convert_ase``
 read the reference PyTorch layouts (the PANNs towers' and the HTSAT tower's
@@ -34,11 +41,10 @@ from typing import Mapping
 
 import numpy as np
 import torch
-
-from zs_aac_tpu_torch.models.gpt2 import _pad_wte_q
 from torch import nn
 
 from zs_aac_tpu_torch.models.caption import SoundEffectCrossAttention
+from zs_aac_tpu_torch.models.gpt2 import _pad_wte_q
 from zs_aac_tpu_torch.models.mapper import MLP, TransformerMapper
 from zs_aac_tpu_torch.utils.device import resolve_device
 
@@ -73,6 +79,8 @@ def _listify(tree):
 
 
 def _to_tensor(a, device):
+    if isinstance(a, torch.Tensor):      # a bfloat16 leaf read as a tensor
+        return a.to(device)
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
@@ -82,6 +90,21 @@ def _gpt2(tree, device):
         q = p["wte_q"]
         skey = "scale_a8" if "scale_a8" in q else "scale"
         q["w"], q[skey] = _pad_wte_q(q["w"], q[skey])
+    return p
+
+
+def _mistral(tree, device):
+    from zs_aac_tpu_torch.models.mistral import _pad_cols, col_major
+
+    p = tree_map(lambda a: _to_tensor(a, device), tree)
+    head = p["lm_head"]
+    if isinstance(head, dict):
+        skey = "scale_a8" if "scale_a8" in head else "scale"
+        head["w"], head[skey] = _pad_cols(head["w"], head[skey])
+    for leaf in [head] + [site for layer in p["layers"] for part in ("attn", "mlp")
+                          for site in layer[part].values()]:
+        if isinstance(leaf, dict):
+            leaf["w"] = col_major(leaf["w"])
     return p
 
 
@@ -145,8 +168,16 @@ def from_jax_params(tree, device="cuda"):
         if "cross_attention" in tree:
             out["cross_attention"] = _cross_attention(tree["cross_attention"], dev)
         return out
+    if "lora" in tree and "mapper" in tree:
+        out = {"mapper": _mapper(tree["mapper"], dev),
+               "lora": tree_map(lambda a: _to_tensor(a, dev), tree["lora"])}
+        if "mistral" in tree:
+            out["mistral"] = _mistral(tree["mistral"], dev)
+        return out
     if "wte" in tree and "h" in tree:
         return _gpt2(tree, dev)
+    if "embed" in tree and "layers" in tree:
+        return _mistral(tree, dev)
     return _mapper(tree, dev)
 
 
@@ -189,6 +220,11 @@ def to_jax_params(params):
     dicts keyed "0", "1", ... (flax's state dict)."""
     if isinstance(params, nn.Module):
         return _module_tree(params)
+    if isinstance(params, dict) and "embed" in params and isinstance(params.get("lm_head"), dict):
+        V = params["embed"].shape[0]
+        out = {k: to_jax_params(v) for k, v in params.items()}
+        out["lm_head"] = {k: v[..., :V] for k, v in out["lm_head"].items()}
+        return out
     if isinstance(params, dict):
         return {k: to_jax_params(v) for k, v in params.items()}
     if isinstance(params, (list, tuple)):

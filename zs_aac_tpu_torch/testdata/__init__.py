@@ -33,6 +33,20 @@ four WAVs (``train_batch``: each clip with each of its two captions, the
 clip index as the positive id), ``TRAIN_STEPS`` steps of ``TRAIN_OPTIM``:
 the losses, per-leaf checksums of the updated parameters (``checksums``)
 and the updated batch statistics.
+
+``tiny_mistral/``: a tiny Mistral + LoRA multilingual captioner made by the
+JAX package's CLIs (``PYTHONPATH=. python tests/test_torch_multilingual.py
+--write-fixture`` regenerates it): ``spm.model``, a SentencePiece BPE model
+of the banks' words (``write_word_bpe_model``; a vocabulary that is not a
+multiple of 8), the train and test banks (English, Chinese and French
+captions), ``base.msgpack`` (the JAX package's random fp32 base at
+``_mistral_config("tiny")``), ``run/`` (``params.json`` and ``best.pth`` of
+a JAX ``train_prompt_multilingual`` run on that base) and
+``expected.json``: the ``output.txt`` predictions of JAX
+``predict_multilingual`` on the run dir, float and ``--q8 --fuse_qkv on``,
+and a record of ``MISTRAL_TRAIN_STEPS`` steps of the JAX package's LoRA
+train step on ``mistral_train_batch()`` from the run's ``best.pth`` (losses
+and checksums of the mapper and LoRA).
 """
 
 from __future__ import annotations
@@ -47,7 +61,10 @@ import numpy as np
 __all__ = ["FIXTURE_DIR", "TINY_ASE_DIR", "TINY_CLAP_DIR", "stage_tiny_captioner", "stage_tiny_ase",
            "train_batch", "checksums", "clap_waves", "TRAIN_STEPS", "TRAIN_OPTIM",
            "CAPTION_TRAIN_STEPS", "CAPTION_TRAIN_OPTIM", "caption_fixture_config",
-           "caption_train_batch", "replay_caption_train_fixture"]
+           "caption_train_batch", "replay_caption_train_fixture", "TINY_MISTRAL_DIR",
+           "MISTRAL_TRAIN_STEPS", "MISTRAL_TRAIN_OPTIM", "write_word_bpe_model",
+           "stage_tiny_mistral", "mistral_fixture_config", "mistral_train_batch",
+           "replay_mistral_train_fixture"]
 
 # the recorded train run: Adam under a clip of the global norm at 2, cosine
 # schedule with one warmup step over TRAIN_STEPS steps
@@ -59,7 +76,12 @@ TRAIN_OPTIM = {"lr": 1e-3, "warmup": 1, "clip": 2.0, "optimizer": "adam"}
 CAPTION_TRAIN_STEPS = 3
 CAPTION_TRAIN_OPTIM = {"lr": 1e-3, "warmup": 1, "weight_decay": 0.01}
 
+# the recorded Mistral LoRA run: AdamW with decay at a constant lr, noise 0
+MISTRAL_TRAIN_STEPS = 3
+MISTRAL_TRAIN_OPTIM = {"lr": 1e-3, "weight_decay": 0.01}
+
 FIXTURE_DIR = Path(__file__).resolve().parent / "tiny_captioner"
+TINY_MISTRAL_DIR = Path(__file__).resolve().parent / "tiny_mistral"
 TINY_ASE_DIR = Path(__file__).resolve().parent / "tiny_ase"
 TINY_CLAP_DIR = Path(__file__).resolve().parent / "tiny_clap"
 
@@ -301,3 +323,125 @@ def train_fixture_errors(got: dict, want: dict) -> dict:
         d = np.abs(np.asarray(got["batch_stats"][k]) - w).max()
         stats = max(stats, float(d / np.abs(w).max()))
     return {"loss": loss, "params": leaf, "batch_stats": stats}
+
+
+def write_word_bpe_model(path, words, chars=""):
+    """Write a SentencePiece BPE ``.model`` in which each word (after the
+    ``▁`` word-start mark) merges into one piece by the chain of its
+    prefixes, shorter merges first; single characters of the words and of
+    ``chars`` are pieces, with the 256 byte pieces as fallback for any other
+    character. Returns the tokenizer read back from ``path``."""
+    from zs_aac_tpu_torch.data.sentencepiece import (BPE, BYTE, CONTROL, NORMAL, UNKNOWN,
+                                                     SentencePieceTokenizer, write_model)
+
+    pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL), ("</s>", 0.0, CONTROL)]
+    seen = set()
+
+    def add(piece, score):
+        if piece not in seen:
+            seen.add(piece)
+            pieces.append((piece, score, NORMAL))
+
+    for w in sorted(set(words)):
+        w = "▁" + w
+        for k in range(2, len(w) + 1):
+            add(w[:k], -float(k))
+    for ch in sorted(set("".join(words) + chars + "▁")):
+        add(ch, -100.0)
+    pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
+    write_model(str(path), pieces, model_type=BPE)
+    return SentencePieceTokenizer.from_file(str(path))
+
+
+def stage_tiny_mistral(dst) -> dict:
+    """Copy the Mistral fixture into ``dst`` with the run's recorded paths
+    (banks, tokenizer, base) pointed at the copy. Returns {"run_dir",
+    "test_bank", "train_bank", "tokenizer", "base", "expected"}."""
+    dst = Path(dst)
+    run = dst / "run"
+    run.mkdir(parents=True, exist_ok=True)
+    for name in ("train.pkl", "test.pkl", "spm.model", "base.msgpack"):
+        shutil.copy(TINY_MISTRAL_DIR / name, dst / name)
+    shutil.copy(TINY_MISTRAL_DIR / "run" / "best.pth", run / "best.pth")
+    params = json.loads((TINY_MISTRAL_DIR / "run" / "params.json").read_text())
+    params.update(data=[str(dst / "train.pkl")], valdata=str(dst / "test.pkl"),
+                  tokenizer=str(dst / "spm.model"), mistral_ckpt=str(dst / "base.msgpack"))
+    (run / "params.json").write_text(json.dumps(params))
+    return {"run_dir": str(run), "test_bank": str(dst / "test.pkl"),
+            "train_bank": str(dst / "train.pkl"), "tokenizer": str(dst / "spm.model"),
+            "base": str(dst / "base.msgpack"),
+            "expected": json.loads((TINY_MISTRAL_DIR / "expected.json").read_text())}
+
+
+def mistral_fixture_config() -> dict:
+    """The tiny Mistral captioner's ``MistralCaptionConfig`` fields (its
+    ``params.json``), with its ``MistralConfig``'s under "mistral"."""
+    saved = json.loads((TINY_MISTRAL_DIR / "run" / "params.json").read_text())
+    return {"prefix_length": saved["prefix_length"], "prefix_size": saved["prefix_dim"],
+            "clip_length": saved["prefix_length_clip"], "num_layers": saved["num_layers"],
+            "mapping_type": saved["mapping_type"], "islang": saved["islang"],
+            "max_seq_len": saved["max_seq_len"], "lora_r": saved["lora_r"],
+            "lora_alpha": saved["lora_alpha"],
+            "mistral": {"vocab_size": saved["mistral_vocab_size"], "hidden_size": 32,
+                        "n_layers": 2, "n_heads": 4, "n_kv_heads": 2, "intermediate_size": 64,
+                        "sliding_window": 128, "max_positions": 128}}
+
+
+def mistral_train_batch() -> dict:
+    """The recorded LoRA batch (numpy): the training bank's first 8
+    records, captions in turn English, Chinese and French behind their tag
+    (the fixture's SentencePiece model, "." appended, padded to 16 tokens
+    behind ``prefix_length`` mask ones), each with its bank text embedding."""
+    import pickle
+
+    from zs_aac_tpu_torch.data.sentencepiece import SentencePieceTokenizer
+
+    tok = SentencePieceTokenizer.from_file(str(TINY_MISTRAL_DIR / "spm.model"))
+    with open(TINY_MISTRAL_DIR / "train.pkl", "rb") as f:
+        records = pickle.load(f)[:8]
+    P, S = mistral_fixture_config()["prefix_length"], 16
+    tokens = np.zeros((len(records), S), np.int64)
+    mask = np.zeros((len(records), P + S), np.float32)
+    mask[:, :P] = 1.0
+    for i, rec in enumerate(records):
+        tag, cap = [("<en>", rec["caption"]), ("<zh>", rec["cn_caption"]),
+                    ("<fr>", rec["fr_caption"])][i % 3]
+        ids = tok.encode(f"{tag}{cap}.")[:S]
+        tokens[i, :len(ids)] = ids
+        mask[i, P:P + len(ids)] = 1.0
+    prefix = np.stack([np.asarray(r["text_embedding"], np.float32).reshape(-1)
+                       for r in records])
+    return {"tokens": tokens, "mask": mask, "prefix": prefix}
+
+
+def replay_mistral_train_fixture(device="cuda") -> dict:
+    """The recorded LoRA run through the port's
+    ``make_multilingual_train_step`` on ``device`` (fp32, the fixture's base
+    and ``best.pth``): {"losses", "checksums"} of {"mapper", "lora"}."""
+    from zs_aac_tpu_torch.models.caption_mistral import MistralCaptionConfig
+    from zs_aac_tpu_torch.models.convert import from_jax_params, to_jax_params
+    from zs_aac_tpu_torch.models.mistral import MistralConfig
+    from zs_aac_tpu_torch.train.caption_trainer import tensor_tree
+    from zs_aac_tpu_torch.train.train_prompt_multilingual import (MultilingualTrainState,
+                                                                  load_mistral_base,
+                                                                  make_multilingual_optimizer,
+                                                                  make_multilingual_train_step)
+    from zs_aac_tpu_torch.utils.checkpoints import load_params
+
+    fields = mistral_fixture_config()
+    cfg = MistralCaptionConfig(**{**fields, "mistral": MistralConfig(**fields["mistral"])})
+    head = from_jax_params(load_params(str(TINY_MISTRAL_DIR / "run" / "best.pth")),
+                           device=device)
+    params = {**head, "mistral": load_mistral_base(str(TINY_MISTRAL_DIR / "base.msgpack"),
+                                                   device)}
+    o = MISTRAL_TRAIN_OPTIM
+    opt = make_multilingual_optimizer(o["lr"], o["weight_decay"])
+    state = MultilingualTrainState(params, opt.init(tensor_tree(params)), 0)
+    step = make_multilingual_train_step(cfg, opt, 0.0, device)
+    batch = mistral_train_batch()
+    losses = []
+    for _ in range(MISTRAL_TRAIN_STEPS):
+        state, loss = step(state, batch, 0)
+        losses.append(float(loss))
+    tree = to_jax_params({"mapper": state.params["mapper"], "lora": state.params["lora"]})
+    return {"losses": losses, "checksums": checksums(tree)}

@@ -170,16 +170,43 @@ def chain(*transforms):
 
 
 def set_to_zero():
+    """Zero updates, as expanded views of one zero (no memory per leaf: a
+    frozen 7B base costs nothing)."""
+    def zeros(g):
+        return torch.zeros((), dtype=g.dtype, device=g.device).expand(g.shape)
+
     return GradientTransformation(lambda params: {},
-                                  lambda grads, state, params=None: (
-                                      _map(torch.zeros_like, grads), state))
+                                  lambda grads, state, params=None: (_map(zeros, grads), state))
+
+
+def _part(tree, lab, name):
+    """The subtree of ``tree`` whose labels are ``name`` (None if empty)."""
+    if isinstance(lab, str):
+        return tree if lab == name else None
+    out = {}
+    for k in tree:
+        sub = _part(tree[k], lab[k], name)
+        if sub is not None:
+            out[k] = sub
+    return out or None
+
+
+def _merge(dst, src):
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _merge(dst[k], v)
+        else:
+            dst[k] = v
+    return dst
 
 
 def multi_transform(transforms: dict, labels: Callable):
-    """Each top-level key of the tree goes to ``transforms[labels(tree)[key]]``."""
+    """optax's ``multi_transform``: ``labels(tree)`` names a transform for
+    each key of the tree, a string for its whole subtree or a dict of labels
+    one level down; each transform sees its part of the tree."""
     def groups(tree):
         lab = labels(tree)
-        return {name: {k: tree[k] for k in tree if lab[k] == name} for name in transforms}
+        return {name: _part(tree, lab, name) or {} for name in transforms}
 
     def init(params):
         return {name: transforms[name].init(sub) for name, sub in groups(params).items()}
@@ -190,7 +217,7 @@ def multi_transform(transforms: dict, labels: Callable):
         out, new = {}, {}
         for name, t in transforms.items():
             u, new[name] = t.update(gg[name], state[name], pp[name])
-            out.update(u)
+            _merge(out, u)
         return out, new
 
     return GradientTransformation(init, update)

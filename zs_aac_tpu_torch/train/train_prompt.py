@@ -11,9 +11,9 @@ package's ``predict_prompt`` reads the run dir; ``--ckpt_file`` takes either
 package's snapshot. ``--max_iters`` caps the steps.
 
 The train step is ``train/caption_trainer.py`` on ``--device`` (default
-``cuda``; ``cpu`` runs on the CPU). ``--data_parallel`` (multi-GPU, A13 of
-ROADMAP.md) and SentencePiece ``.model`` tokenizers are not ported yet and
-raise ``NotImplementedError``.
+``cuda``; ``cpu`` runs on the CPU). ``--tokenizer`` takes GPT-2's BPE files
+or a SentencePiece ``.model``. ``--data_parallel`` (multi-GPU, A13 of
+ROADMAP.md) is not ported yet and raises ``NotImplementedError``.
 
 Run: ``python -m zs_aac_tpu_torch.train.train_prompt --data bank.pkl
 --valdata test.pkl ...``
@@ -47,8 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefix", default="coco_prefix")
     p.add_argument("--ckpt_file", type=str, default=None)
     p.add_argument("--tokenizer", type=str, default=None,
-                   help="dir with GPT-2 vocab.json/merges.txt; default: "
-                        "word-level tokenizer built from the training bank")
+                   help="dir with GPT-2 vocab.json/merges.txt, or a SentencePiece "
+                        ".model; default: word-level tokenizer built from the "
+                        "training bank")
     # training
     p.add_argument("--bs", type=int, default=40)
     p.add_argument("--epochs", type=int, default=15)
@@ -100,14 +101,24 @@ def _gpt2_config(size: str, vocab_size: int):
 
 
 def _make_tokenizer(tokenizer_path, records_paths):
-    """(tokenizer, stop token id): GPT-2's BPE files in ``tokenizer_path``,
-    or a word tokenizer built from the banks' captions."""
+    """(tokenizer, stop token id): a SentencePiece ``.model``, GPT-2's BPE
+    files in ``tokenizer_path``, or a word tokenizer built from the banks'
+    captions."""
     from zs_aac_tpu_torch.data.banks import iter_bank
     from zs_aac_tpu_torch.data.tokenizer import GPT2BPETokenizer, WordTokenizer
 
     if tokenizer_path:
         if tokenizer_path.endswith(".model"):
-            raise NotImplementedError(f"the SentencePiece tokenizer {_LATER}")
+            from zs_aac_tpu_torch.data.sentencepiece import SentencePieceTokenizer
+
+            sp = SentencePieceTokenizer.from_file(tokenizer_path)
+            # captions end in "." and eos never appears in the training
+            # targets, so the stop id is the "." piece; failing that, the
+            # byte piece of ".", then eos
+            stop = sp.piece_to_id.get(".")
+            if stop is None:
+                stop = sp.byte_pieces.get(ord("."), sp.eos_id)
+            return sp, stop
         tok = GPT2BPETokenizer.from_dir(tokenizer_path)
         return tok, tok.encode(".")[0]
     corpus = []

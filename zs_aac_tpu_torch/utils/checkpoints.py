@@ -24,7 +24,9 @@ flax writes the state dict as msgpack maps (lists become maps keyed "0",
 C-order bytes)`` triple and numpy scalars as ext type 3. ``load_params(path)``
 returns the nested dict with numpy leaves, ready for
 ``models.convert.from_jax_params``. bfloat16 leaves are widened to float32,
-which is exact. (flax splits arrays over 1 GiB into chunked maps; no
+which is exact, or with ``bf16_tensors=True`` come back as CPU
+``torch.bfloat16`` tensors (flax restores a leaf in its stored dtype, so a
+driver that serves a checkpoint in its dtype needs to know it). (flax splits arrays over 1 GiB into chunked maps; no
 checkpoint of this slice's models has one, and such a leaf stays a map.)
 """
 
@@ -121,28 +123,31 @@ def load_ase_variables(path: str, cfg, device="cuda") -> dict:
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 
 
-def _ndarray(data: bytes) -> np.ndarray:
+def _ndarray(data: bytes, bf16_tensors: bool = False):
     shape, dtype_name, buf = msgpack_unpackb(data)
     if isinstance(buf, str):
         buf = buf.encode("latin-1")
     if dtype_name == "bfloat16":
-        bits = np.frombuffer(buf, dtype=np.uint16).astype(np.uint32) << 16
-        return bits.view(np.float32).reshape(shape)
+        bits = np.frombuffer(buf, dtype=np.uint16)
+        if bf16_tensors:
+            return torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16).reshape(shape)
+        return (bits.astype(np.uint32) << 16).view(np.float32).reshape(shape)
     return np.frombuffer(buf, dtype=np.dtype(dtype_name)).reshape(shape).copy()
 
 
-def _ext(code: int, data: bytes):
+def _ext(code: int, data: bytes, bf16_tensors: bool = False):
     if code == _EXT_NDARRAY:
-        return _ndarray(data)
+        return _ndarray(data, bf16_tensors)
     if code == _EXT_NPSCALAR:
-        return _ndarray(data)[()]
+        return _ndarray(data, bf16_tensors)[()]
     raise ValueError(f"unknown msgpack ext type {code}")
 
 
 class _Reader:
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, bf16_tensors: bool = False):
         self.b = memoryview(data)
         self.i = 0
+        self.bf16_tensors = bf16_tensors
 
     def take(self, n: int) -> bytes:
         out = self.b[self.i:self.i + n]
@@ -180,11 +185,11 @@ class _Reader:
         if t in sized:
             n = self.fmt(sized[t])
             code = self.fmt(">b")
-            return _ext(code, self.take(n))
+            return _ext(code, self.take(n), self.bf16_tensors)
         fixext = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
         if t in fixext:
             code = self.fmt(">b")
-            return _ext(code, self.take(fixext[t]))
+            return _ext(code, self.take(fixext[t]), self.bf16_tensors)
         scalar = {0xCA: ">f", 0xCB: ">d", 0xCC: ">B", 0xCD: ">H", 0xCE: ">I",
                   0xCF: ">Q", 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
         if t in scalar:
@@ -206,19 +211,20 @@ class _Reader:
         return out
 
 
-def msgpack_unpackb(data: bytes):
+def msgpack_unpackb(data: bytes, bf16_tensors: bool = False):
     """Decode one msgpack object (the subset flax's checkpoints use)."""
-    r = _Reader(data)
+    r = _Reader(data, bf16_tensors)
     obj = r.obj()
     if r.i != len(r.b):
         raise ValueError("trailing bytes after the msgpack object")
     return obj
 
 
-def load_params(path: str):
-    """A ``save_params`` snapshot -> nested dict of numpy arrays."""
+def load_params(path: str, bf16_tensors: bool = False):
+    """A ``save_params`` snapshot -> nested dict of numpy arrays (bfloat16
+    leaves as ``torch.bfloat16`` tensors with ``bf16_tensors``)."""
     with open(path, "rb") as f:
-        return msgpack_unpackb(f.read())
+        return msgpack_unpackb(f.read(), bf16_tensors)
 
 
 def _pack_ext(out: list, code: int, data: bytes) -> None:
