@@ -174,7 +174,26 @@ which must pass:
     steps by CUDA events: samples/s, peak memory, share of the bf16 flop
     bound, the base unchanged) and its gradients at the same widths cut to 2
     layers against an fp32 evaluation (``LORA_GRAD_COSINE_MIN``,
-    ``LORA_GRAD_NORM_TOL``).
+    ``LORA_GRAD_NORM_TOL``);
+19. the CLIP and GPT-2 text towers (no kernel of their own: cuBLAS): the
+    committed ``testdata/tiny_text_towers`` record (the JAX package's hidden
+    states and ASE text embeddings of a ``gpt2-tiny`` and a ``clip-tiny``
+    ASE) in fp32 within ``TEXT_TOWER_TOL``; ``gpt2`` (50,257 x 768, 12
+    layers, 1,024 positions) and ``openai/clip-vit-base-patch32``'s text
+    tower (49,408 x 512, 12 layers, 77 positions) seeded at B=256 x 30
+    tokens: fp32 on the card against the port on the CPU (4 rows), bf16
+    against fp32 (``TOWER_BF16_COSINE_MIN``), ms a batch and texts/s by CUDA
+    events; phase 13's train step with a ``gpt2`` tower (K2 1, K7/K8/K9 10,
+    K5/K6 2 launches a step; finite loss and gradients; ``StepTimer``,
+    one ``trace``'s idle share, ``device_memory_stats``' peak); and the
+    port's end-to-end toy (``examples/end_to_end_toy_torch.py``: prepare,
+    pretrain, extract, the label bank, related, train_prompt, predict beam,
+    the supervised path) through its CLIs with ``--device cuda`` at
+    ``TOY_EPOCHS`` (the pretrain at the first of ``TOY_SEEDS``, in waves of
+    four, whose CLAP's audio embeddings did not collapse, each collapsed
+    seed before it printed): every file contract, both ``scores.txt``, and
+    at least ``TOY_GATE`` of the 24 supervised captions naming their clip's
+    class.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -3099,6 +3118,255 @@ def _mistral_train(params, cfg):
     check(cos_min[0] >= LORA_GRAD_COSINE_MIN, "bf16 LoRA gradients diverge from fp32")
     check(abs(ratio[1] - 1) <= LORA_GRAD_NORM_TOL, "bf16 LoRA gradient norms differ from fp32")
 
+# -- the CLIP and GPT-2 text towers, the train step with a GPT-2 tower, the toy chain ---
+
+# fp32 text towers on the card against the port on the CPU (TF32 off): summation
+# order only, relative to the largest |h| (the BERT tests' 2e-5 at |h| ~ 3)
+TEXT_TOWER_TOL = 2e-5
+# bf16 towers against their fp32 evaluation on the card: per-row cosine of the
+# hidden states, the full-width embedding gate (COSINE_MIN). Every Dense output
+# and the residual stream round to 8 bits, 12 times over through seeded layers;
+# a wrong mask, position or head split leaves a cosine far below (unrelated rows
+# sit near 0), while rounding alone stays above 0.999 (the max |difference| is
+# printed beside it)
+TOWER_BF16_COSINE_MIN = COSINE_MIN
+TOWER_BATCH, TOWER_TOKENS = 256, 30       # the extract driver's max_length
+TOY_EPOCHS = (100, 100, 80)               # the JAX toy's: pretrain, captioner, supervised
+TOY_GATE = 0.5        # share of the 24 supervised captions that must name their class
+# pretrain seeds, in waves of four side by side; the toy takes the first in
+# order whose CLAP's audio embeddings did not collapse (the JAX toy's seed 20
+# first; the reason and the criterion: examples/end_to_end_toy_torch.py and
+# PERF.md section 6)
+TOY_SEEDS = tuple(range(20, 36))
+
+
+def tower_flops(cfg, B, L):
+    """Multiply-adds x 2 of one text-tower forward over [B, L] tokens:
+    the projections and MLP per token, q k^T and p v per (query, key)."""
+    from zs_aac_tpu_torch.models.text_towers import GPT2EncoderConfig
+
+    if isinstance(cfg, GPT2EncoderConfig):
+        D, inner, n = cfg.n_embd, 4 * cfg.n_embd, cfg.n_layer
+    else:
+        D, inner, n = cfg.hidden_size, cfg.intermediate_size, cfg.n_layer
+    per_token = 4 * D * D + 2 * D * inner          # q, k, v, out + the MLP
+    return 2 * n * B * L * (per_token + 2 * L * D)
+
+
+def _tower_fixture():
+    """The committed ``testdata/tiny_text_towers`` record (the JAX package's
+    hidden states and ASE text embeddings of its two checkpoints) in fp32."""
+    import torch
+
+    from zs_aac_tpu_torch import testdata
+    from zs_aac_tpu_torch.models.ase import ASE, ASEConfig
+    from zs_aac_tpu_torch.models.convert import from_jax_params
+    from zs_aac_tpu_torch.utils.checkpoints import load_params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        staged = testdata.stage_tiny_text_towers(tmp)
+        rec = staged["expected"]
+        ids = torch.tensor(rec["ids"], device="cuda")
+        mask = torch.tensor(rec["mask"], device="cuda")
+        for name in testdata.TEXT_TOWERS:
+            meta = json.load(open(staged[name] + ".json"))["ase_config"]
+            cfg = ASEConfig(**{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in meta.items()})
+            ase = ASE(cfg)
+            variables = from_jax_params(load_params(staged[name]), device="cuda")
+            with torch.no_grad():
+                hidden = ase.text_enc.apply(variables["params"]["text_enc"], ids, mask)
+                emb = ase.encode_text(variables, ids, mask)
+            err_h = (hidden.cpu() - torch.tensor(rec[name]["hidden"])).abs().max().item()
+            err_e = (emb.cpu() - torch.tensor(rec[name]["embeddings"])).abs().max().item()
+            print(f"[towers] fixture {name}: hidden states [{', '.join(map(str, hidden.shape))}] "
+                  f"{err_h:.2e} and ASE text embeddings {err_e:.2e} from the JAX record "
+                  f"(tol {TEXT_TOWER_TOL})", flush=True)
+            check(max(err_h, err_e) <= TEXT_TOWER_TOL,
+                  f"the {name} tower differs from the JAX-recorded hidden states")
+
+
+def _towers_full_width():
+    """``gpt2`` and ``openai/clip-vit-base-patch32``'s text tower at their
+    published widths, seeded, on B=256 x 30 tokens (padded rows): fp32 on the
+    card against the port on the CPU (4 rows), bf16 against fp32, and each
+    dtype's ms a batch and texts/s by CUDA events. Returns {name: stats}."""
+    import torch
+
+    from zs_aac_tpu_torch.models.convert import cast_floating, tree_map
+    from zs_aac_tpu_torch.models.text_towers import (CLIPTextConfig, CLIPTextEncoder,
+                                                     GPT2EncoderConfig, GPT2TextEncoder,
+                                                     init_clip_text, init_gpt2_encoder)
+
+    B, L = TOWER_BATCH, TOWER_TOKENS
+    out = {}
+    for name, tower, init, cfg in (
+            ("gpt2", GPT2TextEncoder, init_gpt2_encoder, GPT2EncoderConfig()),
+            ("openai/clip-vit-base-patch32", CLIPTextEncoder, init_clip_text, CLIPTextConfig())):
+        params = init(cfg, torch.Generator().manual_seed(19), "cuda")
+        gi = torch.Generator(device="cuda").manual_seed(20)
+        ids = torch.randint(1, cfg.vocab_size, (B, L), generator=gi, device="cuda")
+        lens = torch.randint(4, L + 1, (B,), generator=gi, device="cuda")
+        mask = (torch.arange(L, device="cuda")[None] < lens[:, None]).long()
+        ids = ids * mask
+        t32, t16 = tower(cfg, torch.float32), tower(cfg, torch.bfloat16)
+        p16 = cast_floating(params, torch.bfloat16)
+        with torch.no_grad():
+            h32 = t32.apply(params, ids, mask)
+            h16 = t16.apply(p16, ids, mask).float()
+            ref = t32.apply(tree_map(lambda t: t.cpu(), params), ids[:4].cpu(), mask[:4].cpu())
+        scale = ref.abs().max().item()
+        err_cpu = (h32[:4].cpu() - ref).abs().max().item() / scale
+        cos = torch.nn.functional.cosine_similarity(h16.reshape(B, -1), h32.reshape(B, -1),
+                                                    dim=1)
+        err16 = (h16 - h32).abs().max().item() / h32.abs().max().item()
+        times = {}
+        for dt, t, p in (("fp32", t32, params), ("bf16", t16, p16)):
+            with torch.no_grad():
+                t.apply(p, ids, mask)
+                times[dt] = timed_ms(lambda r: t.apply(p, ids, mask), 5)
+        flops = tower_flops(cfg, B, L)
+        print(f"[towers] {name} ({cfg}) B={B} x {L} tokens, seeded: fp32 card vs CPU (4 rows) "
+              f"{err_cpu:.2e} of max|h| {scale:.3g} (tol {TEXT_TOWER_TOL}); bf16 vs fp32 per-row "
+              f"cosine min {cos.min().item():.6f} (threshold {TOWER_BF16_COSINE_MIN}), max "
+              f"|difference| {err16:.3e} of max|h|; fp32 {times['fp32']:.3f} ms a batch "
+              f"({B / times['fp32'] * 1e3:.1f} texts/s), bf16 {times['bf16']:.3f} ms "
+              f"({B / times['bf16'] * 1e3:.1f} texts/s, {flops / 989e12 * 1e3 / times['bf16']:.2%} "
+              f"of the bf16 flop bound {flops / 989e12 * 1e3:.4f} ms)", flush=True)
+        check(err_cpu <= TEXT_TOWER_TOL, f"the {name} tower on the card differs from the CPU's")
+        check(cos.min().item() >= TOWER_BF16_COSINE_MIN, f"the bf16 {name} tower diverges")
+        check(bool(torch.isfinite(h16).all() and torch.isfinite(h32).all()),
+              f"non-finite {name} hidden states")
+        out[name] = {"fp32_ms": times["fp32"], "bf16_ms": times["bf16"],
+                     "bf16_texts_per_s": B / times["bf16"] * 1e3}
+        del params, p16, h32, h16
+    return out
+
+
+def _tower_train_step():
+    """The full-width HTSAT + ``gpt2``-tower ASE train step in bf16 (phase
+    13's geometry and optimizer, B=64 x 10 s, embed 1024, one batch): launch
+    counts per step, finite loss and gradients, step time by ``StepTimer``
+    (synchronized), the idle share from one ``trace`` and the peak memory
+    from ``device_memory_stats``. Returns the launches per step."""
+    import torch
+
+    from zs_aac_tpu_torch.ops import window_attn as wa
+    from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel
+    from zs_aac_tpu_torch.train.contrastive import create_ase_state, make_ase_train_step
+    from zs_aac_tpu_torch.train.pretrain import build_ase_from_config, build_optimizer
+    from zs_aac_tpu_torch.utils.profiling import StepTimer, device_memory_stats, trace
+
+    config = {**TRAIN_CONFIG, "text_encoder_args": {"type": "gpt2", "freeze": False}}
+    B, T, L, steps = 64, 10 * 32000, TOWER_TOKENS, 3
+    ase, cfg = build_ase_from_config(config, device="cuda")
+    check(cfg.fused_attn is True and cfg.fused_block == (0, 1, 2) and cfg.dtype == torch.bfloat16
+          and cfg.text_model == "gpt2", f"tower train dispatch {cfg}")
+    mel_cfg = LogMelConfig.from_dict(config["audio_args"])
+    optimizer = build_optimizer(config, steps_per_epoch=1)
+    state = create_ase_state(0, ase, optimizer, device="cuda")
+    batch = _train_batch(B, T, L, torch.Generator(device="cuda").manual_seed(12))
+    step = make_ase_train_step(ase, optimizer, mel_cfg, device="cuda")
+    state, loss0 = step(state, batch, 0)                 # warm-up
+    torch.cuda.synchronize()
+    kernels = {"K2": log_mel, "K5": wa.fused_window_attention, "K6": wa.window_attention_bwd,
+               "K7": wa.fused_swin_block_train, "K8": wa.mlp_bwd, "K9": wa.attn_ln1_bwd}
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    timer = StepTimer(warmup=0, device="cuda")
+    losses = [float(loss0)]
+    for _ in range(steps):                               # the main path, counted
+        with timer.step():
+            state, loss = step(state, batch, 0)
+        losses.append(float(loss))
+    per_step = {k: fn.launches / steps for k, fn in kernels.items()}
+    stats = device_memory_stats("cuda")
+    peak = stats["allocated_bytes.all.peak"] / 2 ** 30
+    summary = timer.summary()
+    variables = {"params": state.params, "batch_stats": state.batch_stats}
+    with torch.no_grad():
+        spec = log_mel(batch["wave"], mel_cfg)[:, 0]
+    gloss, grads = _loss_grads(ase, variables, spec, batch, 77)
+    finite = all(g is None or bool(torch.isfinite(g).all()) for g in grads)
+    n_text = len(_leaf_names(variables["params"]["text_enc"]))
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir, device="cuda") as prof:
+            torch.zeros(1, device="cuda")
+            t0 = time.perf_counter()
+            state, _ = step(state, batch, 0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+    print(f"[tower-train] HTSAT + gpt2 tower (12 x 768, 124M parameters in the tower), bf16, "
+          f"B={B} 10 s clips + {L} tokens: losses {losses}; launches per step {per_step} "
+          f"(expected K2 1, K5 2, K6 2, K7 10, K8 10, K9 10); gradients of {len(grads)} leaves "
+          f"({n_text} in the text tower) finite: {finite} (loss {gloss.item():.6f})", flush=True)
+    print(f"[tower-train] StepTimer (synchronized) over {summary['steps']} steps: mean "
+          f"{summary['mean_s'] * 1e3:.2f} ms, p50 {summary['p50_s'] * 1e3:.2f} ms -> "
+          f"{B / summary['mean_s']:.1f} samples/s; peak memory {peak:.2f} GiB; one traced step: "
+          f"wall {wall:.2f} ms, device {dev_ms:.2f} ms (idle {1 - dev_ms / wall:.1%})", flush=True)
+    check(per_step == {"K2": 1, "K5": 2, "K6": 2, "K7": 10, "K8": 10, "K9": 10},
+          "tower train-step launch counts off the main path's")
+    check(all(math.isfinite(v) for v in losses) and finite, "non-finite tower train step")
+    return per_step
+
+
+def _toy_chain():
+    """``examples/end_to_end_toy_torch.py`` on the card: every stage a CLI
+    subprocess with ``--device cuda``, ``TOY_EPOCHS``; the file contracts,
+    both ``scores.txt``, and the supervised captions' class words."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location("end_to_end_toy_torch",
+                                                  "examples/end_to_end_toy_torch.py")
+    toy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(toy)
+    env = dict(os.environ, WANDB_MODE="disabled")
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as root:
+        log_path = os.path.join(root, "stages.log")
+        t0 = time.perf_counter()
+        try:
+            with open(log_path, "w") as log:
+                p = toy.run_toy(os.path.join(root, "toy"), "cuda", TOY_EPOCHS, env=env,
+                                log=lambda s: print("[toy]" + s.replace("\n", " "), flush=True),
+                                stdout=log, seeds=TOY_SEEDS)
+        except Exception:
+            print("".join(open(log_path).readlines()[-60:]), flush=True)
+            raise
+        wall = time.perf_counter() - t0
+        missing = [f for f in toy.file_contracts(p) if not os.path.exists(f)]
+        check(not missing, f"the toy chain left no {missing}")
+        for title, d in (("zero-shot", p["run_dir"]), ("supervised", p["supervised_run_dir"])):
+            scores = open(os.path.join(d, "scores.txt")).read().strip().replace("\n", "; ")
+            print(f"[toy] {title} scores.txt: {scores}", flush=True)
+        preds = json.load(open(os.path.join(p["supervised_run_dir"], "output.txt")))
+        hits, n = toy.supervised_hits(p)
+    print(f"[toy] chain of {len(toy.file_contracts(p))} files written in {wall:.1f} s "
+          f"(epochs {TOY_EPOCHS}; pretrain seed {p['seed']}, lowest epoch loss "
+          f"{min(p['pretrain_losses']):.4f}, chance {math.log(toy.BATCH):.4f}, audio "
+          f"embeddings' mean pairwise cosine {p['audio_spread']:.4f}, collapsed above "
+          f"{toy.COLLAPSED}); supervised captions naming their clip's class: {hits}/{n} "
+          f"(gate {TOY_GATE:.0%}); e.g. {[q['caption'] for q in preds['predictions'][:3]]}",
+          flush=True)
+    check(n == 24 and hits >= TOY_GATE * n, "the supervised toy captions miss their classes")
+
+
+def phase_text_towers():
+    """Phase 19: the CLIP and GPT-2 text towers (the committed fixture, both
+    at their published widths), the HTSAT + GPT-2 train step through K2 and
+    K5-K9, and the port's end-to-end toy chain through its CLIs."""
+    t0 = time.perf_counter()
+    _tower_fixture()
+    _towers_full_width()
+    launches = _tower_train_step()
+    _toy_chain()
+    print(f"[towers] phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
 
 def main():
     import torch
@@ -3130,6 +3398,7 @@ def main():
     cnn_launches = phase_cnn_full_width()
     chain_launches = phase_caption_train()
     phase_mistral()
+    tower_launches = phase_text_towers()
 
     kernels = [{
         "name": "decode_attn_q8",
@@ -3148,6 +3417,7 @@ def main():
         "library_ms": None,
     }]
     k2_extra = {"cnn_launches": cnn_launches}
+    tower = lambda key: {"text_tower_train_launches": int(tower_launches[key])}
     for key, name, source, replaces, err in (
             ("K2", "log_mel", "zs_aac_tpu_torch/csrc/logmel.cu",
              "zs_aac_tpu/ops/logmel.py:192", k2_err),
@@ -3160,7 +3430,8 @@ def main():
              "zs_aac_tpu/ops/window_attn.py:77", window_err["k5"])):
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": enc_launches.get(key, 0),
-                        **(k2_extra if key == "K2" else {}), "max_abs_err": err,
+                        **(k2_extra if key == "K2" else {}),
+                        **(tower(key) if key in tower_launches else {}), "max_abs_err": err,
                         **enc[key], "library_ms": None})
     for key, name, source, line in (
             ("K6", "window_attention_bwd", "swin_train.cu", 757),
@@ -3170,7 +3441,8 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": f"zs_aac_tpu_torch/csrc/{source}",
                         "replaces": f"zs_aac_tpu/ops/window_attn.py:{line}",
-                        "launches": int(train_launches[key]), "max_abs_err": train_err[key],
+                        "launches": int(train_launches[key]), **tower(key),
+                        "max_abs_err": train_err[key],
                         **train[key], "library_ms": None})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -17,13 +17,13 @@ import zs_aac_tpu_torch
 from zs_aac_tpu_torch.decoding import magic
 from zs_aac_tpu_torch.eval import zero_shot
 from zs_aac_tpu_torch.models import (ase, bert, caption, caption_mistral, cnns, convert, gpt2,
-                                     htsat, mapper, mistral)
+                                     htsat, mapper, mistral, text_towers)
 from zs_aac_tpu_torch.pipeline import extract, related
 from zs_aac_tpu_torch.train import (caption_trainer, contrastive, finetune, optim,
                                     predict_multilingual, predict_prompt, pretrain, train_prompt,
                                     train_prompt_multilingual)
 from zs_aac_tpu_torch.utils import device as device_mod
-from zs_aac_tpu_torch.utils import memory
+from zs_aac_tpu_torch.utils import memory, profiling
 
 PKG = Path(zs_aac_tpu_torch.__file__).parent
 REPO = PKG.parent
@@ -44,7 +44,11 @@ def test_importing_every_module_loads_no_jax():
     multilingual = {"zs_aac_tpu_torch." + m for m in (
         "data.sentencepiece", "models.mistral", "models.caption_mistral",
         "train.predict_multilingual", "train.train_prompt_multilingual")}
-    assert kernels | train | captioner | multilingual <= set(mods) and len(mods) >= 58
+    slice13 = {"zs_aac_tpu_torch." + m for m in (
+        "models.text_towers", "pipeline.prepare", "pipeline.synthesize", "utils.config",
+        "utils.profiling", "utils.types")}
+    assert (kernels | train | captioner | multilingual | slice13 <= set(mods)
+            and len(mods) >= 64)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
@@ -68,13 +72,27 @@ def test_importing_every_module_loads_no_jax():
                                     "zs_aac_tpu_torch.models.mistral",
                                     "zs_aac_tpu_torch.models.caption_mistral",
                                     "zs_aac_tpu_torch.train.predict_multilingual",
-                                    "zs_aac_tpu_torch.train.train_prompt_multilingual"])
+                                    "zs_aac_tpu_torch.train.train_prompt_multilingual",
+                                    "zs_aac_tpu_torch.models.text_towers",
+                                    "zs_aac_tpu_torch.models.ase",
+                                    "zs_aac_tpu_torch.pipeline.prepare",
+                                    "zs_aac_tpu_torch.pipeline.synthesize",
+                                    "zs_aac_tpu_torch.pipeline.extract",
+                                    "zs_aac_tpu_torch.train.pretrain",
+                                    "zs_aac_tpu_torch.train.finetune",
+                                    "zs_aac_tpu_torch.utils.config",
+                                    "zs_aac_tpu_torch.utils.profiling",
+                                    "zs_aac_tpu_torch.utils.types",
+                                    "examples/end_to_end_toy_torch.py"])
 def test_slice_modules_import_no_jax_pandas_or_yaml(module):
-    """The PANNs towers, the zero-shot CLI, the captioner's training modules
-    and the Mistral captioner's load in a fresh interpreter without JAX,
-    flax, optax, the JAX package, pandas or yaml (the card machine has
-    neither of the last two)."""
-    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+    """The PANNs towers, the zero-shot CLI, the captioner's training modules,
+    the Mistral captioner's, the text towers, the host pipeline, the config
+    reader, the profiling utilities and the port's end-to-end toy load in a
+    fresh interpreter without JAX, flax, optax, the JAX package, pandas or
+    yaml (the card machine has neither of the last two)."""
+    load = (f"runpy.run_path({module!r}, run_name='toy')" if module.endswith(".py")
+            else f"importlib.import_module({module!r})")
+    code = (f"import importlib, runpy, sys; {load}; "
             "print(sorted({n.split('.')[0] for n in sys.modules} & {'jax', 'jaxlib', 'flax', "
             "'optax', 'zs_aac_tpu', 'pandas', 'yaml'}))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -86,7 +104,8 @@ def test_slice_modules_import_no_jax_pandas_or_yaml(module):
 
 def test_sources_name_no_jax_package():
     bad = re.compile(r"\bzs_aac_tpu\.|^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", re.M)
-    hits = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py") if bad.search(p.read_text())]
+    files = list(PKG.rglob("*.py")) + [REPO / "examples" / "end_to_end_toy_torch.py"]
+    hits = [str(p.relative_to(REPO)) for p in files if bad.search(p.read_text())]
     assert not hits, hits
 
 
@@ -161,6 +180,21 @@ ENTRY_POINTS = {
     "make_multilingual_train_step": (
         train_prompt_multilingual.make_multilingual_train_step,
         lambda: train_prompt_multilingual.make_multilingual_train_step(_MISTRAL_CAPTION, _ADAM)),
+    "init_gpt2_encoder": (text_towers.init_gpt2_encoder, lambda: text_towers.init_gpt2_encoder(
+        text_towers.GPT2EncoderConfig(n_layer=1), torch.Generator())),
+    "init_clip_text": (text_towers.init_clip_text, lambda: text_towers.init_clip_text(
+        text_towers.CLIPTextConfig(n_layer=1), torch.Generator())),
+    "convert_gpt2_encoder": (text_towers.convert_gpt2_encoder,
+                             lambda: text_towers.convert_gpt2_encoder(
+                                 {}, text_towers.GPT2EncoderConfig())),
+    "convert_clip_text": (text_towers.convert_clip_text, lambda: text_towers.convert_clip_text(
+        {}, text_towers.CLIPTextConfig())),
+    "init_ase(gpt2)": (ase.init_ase, lambda: ase.init_ase(ase.ASEConfig(
+        audio_channels=(2,), text_model="gpt2-tiny"))),
+    "StepTimer": (profiling.StepTimer, lambda: profiling.StepTimer()),
+    "trace": (profiling.trace, lambda: profiling.trace("x").__enter__()),
+    "device_memory_stats": (profiling.device_memory_stats,
+                            lambda: profiling.device_memory_stats()),
     "run_multilingual_validation": (
         train_prompt_multilingual.run_multilingual_validation,
         lambda: train_prompt_multilingual.run_multilingual_validation(

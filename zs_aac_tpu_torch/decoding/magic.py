@@ -286,13 +286,13 @@ def text_encoder(variables: dict, text_model: str, wordpiece, q8_tower: bool = F
     a string encoder: ``encode(texts) -> [n, E]`` L2-normalized embeddings
     on the device (through ``wordpiece_ids``), with
     ``encode.device.encode_ids(ids)`` for id matrices (0 = pad).
-    ``q8_tower`` serves the BERT tower with w8a8 GEMMs (``models/bert_q8.py``);
-    it is refused for CLIP and GPT-2 towers."""
-    from zs_aac_tpu_torch.models.ase import (CLIP_TEXT_MODELS, GPT2_TEXT_MODELS, _l2norm,
-                                             _proj, text_config)
-    from zs_aac_tpu_torch.models.bert import BertEncoder
+    The float tower is the ASE's (BERT, CLIP or GPT-2, as the JAX float path
+    serves them); ``q8_tower`` serves the BERT tower with w8a8 GEMMs
+    (``models/bert_q8.py``) and is refused for CLIP and GPT-2 towers."""
+    from zs_aac_tpu_torch.models.ase import (CLIP_TEXT_REGISTRY, GPT2_TEXT_REGISTRY, _l2norm,
+                                             _proj, build_text_tower, text_config)
 
-    if q8_tower and (text_model in CLIP_TEXT_MODELS or text_model in GPT2_TEXT_MODELS):
+    if q8_tower and (text_model in CLIP_TEXT_REGISTRY or text_model in GPT2_TEXT_REGISTRY):
         raise ValueError("--q8_tower supports BERT-family text towers only; "
                          f"checkpoint uses {text_model!r}")
     p = variables["params"]
@@ -306,10 +306,11 @@ def text_encoder(variables: dict, text_model: str, wordpiece, q8_tower: bool = F
         def tower(ids):
             return encode_text_q8(qt, bcfg, ids)
     else:
-        bert = BertEncoder(text_config(text_model), dtype)
+        # the ASE's encode_text: BERT, CLIP or GPT-2 (WordPiece [PAD] is 0)
+        text_enc = build_text_tower(text_model, dtype)
 
         def tower(ids):
-            hidden = bert.apply(p["text_enc"], ids, (ids != 0).int())
+            hidden = text_enc.apply(p["text_enc"], ids, (ids != 0).int())
             return _l2norm(_proj(hidden[:, 0, :], p["text_proj"], dtype))
 
     @torch.no_grad()

@@ -23,8 +23,8 @@ the lower class id. Where the port differs:
   are taken in the table's order sorted stably by class id; in eval mode each
   clip's embedding is independent of the others in its batch, so the order
   changes no accuracy.
-- ``yaml`` is imported only in ``main``; ``zero_shot(config, ...)`` takes the
-  config as a dict.
+- ``-c`` is read by ``utils.config.load_config`` (no pyyaml);
+  ``zero_shot(config, ...)`` takes the config as a dict.
 - ``--device`` (default ``cuda``; raises without CUDA) as in the port's other
   CLIs. On the card every audio encode runs kernel K2 (the log-mel), then the
   config's tower.
@@ -35,7 +35,7 @@ the lower class id. Where the port differs:
   ``bfloat16``, as ``build_ase_from_config`` builds the model.
 
 Run: ``python -m zs_aac_tpu_torch.eval.zero_shot -c configs/inference.yaml
---ckpt CKPT --dataset esc50 --data_root DIR`` (``-c`` needs ``pyyaml``).
+--ckpt CKPT --dataset esc50 --data_root DIR``.
 """
 
 from __future__ import annotations
@@ -166,14 +166,13 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     import torch
-    import yaml
 
     from zs_aac_tpu_torch.models.convert import cast_floating
     from zs_aac_tpu_torch.train.pretrain import build_ase_from_config
     from zs_aac_tpu_torch.utils.checkpoints import load_ase_variables
+    from zs_aac_tpu_torch.utils.config import load_config
 
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    config = load_config(args.config)
     _, cfg = build_ase_from_config(config, device=dev)
     variables = load_ase_variables(args.ckpt, cfg, device=dev)
     if cfg.dtype == torch.bfloat16:

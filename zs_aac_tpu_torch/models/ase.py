@@ -7,13 +7,20 @@ L2-normalized. Variables are the JAX tree as tensors: ``{"params":
 {"audio_enc", "text_enc", "audio_proj", "text_proj", "temp"}, "batch_stats":
 {"audio_enc": ...}}``.
 
-Ported: the three audio towers (``models/cnns.py``, ``models/htsat.py``),
-the BERT text towers of the registry and the contrastive objective:
+The audio towers are ``models/cnns.py``'s and ``models/htsat.py``'s; the
+text tower is picked by ``text_model`` as the JAX ``ASE.setup`` picks it: a
+name of ``CLIP_TEXT_REGISTRY`` builds ``models/text_towers.py``'s
+``CLIPTextEncoder``, one of ``GPT2_TEXT_REGISTRY`` its ``GPT2TextEncoder``,
+any other the BERT-family ``BertEncoder`` of ``TEXT_MODEL_REGISTRY``.
 ``ASE.__call__`` is the JAX ``ASE.__call__`` (the bidirectional soft-target
 ``atc_loss`` with multi-positive targets from the audio ids, the learnable
 temperature, the embedding regularization), and ``ntxent_loss`` is ported
-beside it. The CLIP and GPT-2 text towers wait for a later slice and raise
-``NotImplementedError``.
+beside it.
+
+The ASE embeds a caption by the text tower's position 0. The GPT-2 and CLIP
+towers are causal, and WordPiece puts ``[CLS]`` first in every row, so under
+those towers every caption gets the same embedding, in the JAX package as
+here: a property of the reference that the port keeps.
 """
 
 from __future__ import annotations
@@ -26,9 +33,12 @@ import torch
 from zs_aac_tpu_torch.models.bert import BertConfig, BertEncoder, init_bert
 from zs_aac_tpu_torch.models.cnns import Cnn14, ResNet38
 from zs_aac_tpu_torch.models.htsat import HTSAT
+from zs_aac_tpu_torch.models.text_towers import (CLIPTextConfig, CLIPTextEncoder,
+                                                 GPT2EncoderConfig, GPT2TextEncoder,
+                                                 init_clip_text, init_gpt2_encoder)
 from zs_aac_tpu_torch.utils.device import resolve_device
 
-__all__ = ["ASEConfig", "ASE", "TEXT_MODEL_REGISTRY", "CLIP_TEXT_MODELS", "GPT2_TEXT_MODELS",
+__all__ = ["ASEConfig", "ASE", "TEXT_MODEL_REGISTRY", "CLIP_TEXT_REGISTRY", "GPT2_TEXT_REGISTRY",
            "text_config", "init_ase", "atc_loss", "ntxent_loss"]
 
 
@@ -65,17 +75,41 @@ TEXT_MODEL_REGISTRY = {
                            max_position_embeddings=32),  # tests
 }
 
-# Text towers of the JAX package that are not ported yet: its CLIP and GPT-2
-# registries.
-CLIP_TEXT_MODELS = {"openai/clip-vit-base-patch32", "clip-tiny"}
-GPT2_TEXT_MODELS = {"gpt2", "distilgpt2", "gpt2-tiny"}
-_LATER_TEXT_TOWERS = CLIP_TEXT_MODELS | GPT2_TEXT_MODELS
+# The CLIP and GPT-2 towers (the JAX package's registries, its tiny test
+# geometries included): name -> CLIPTextConfig / GPT2EncoderConfig kwargs.
+CLIP_TEXT_REGISTRY = {
+    "openai/clip-vit-base-patch32": dict(),
+    "clip-tiny": dict(vocab_size=128, hidden_size=32, n_layer=2, n_head=4,
+                      intermediate_size=64, max_positions=32),  # tests
+}
+
+GPT2_TEXT_REGISTRY = {
+    "gpt2": dict(n_layer=12, n_embd=768, n_head=12),
+    "distilgpt2": dict(n_layer=6, n_embd=768, n_head=12),
+    "gpt2-tiny": dict(vocab_size=256, n_positions=64, n_layer=2, n_embd=32,
+                      n_head=4),  # tests
+}
 
 
 def text_config(name: str) -> BertConfig:
-    if name in _LATER_TEXT_TOWERS:
-        raise NotImplementedError(f"text tower {name!r} (CLIP/GPT-2) waits for a later slice")
+    """A BERT-family tower's config (a CLIP or GPT-2 name is a ``KeyError``,
+    as in the JAX package)."""
     return BertConfig(**TEXT_MODEL_REGISTRY[name])
+
+
+def build_text_tower(name: str, dtype=torch.float32):
+    """The text tower ``ASE`` builds for ``name``."""
+    if name in CLIP_TEXT_REGISTRY:
+        return CLIPTextEncoder(CLIPTextConfig(**CLIP_TEXT_REGISTRY[name]), dtype)
+    if name in GPT2_TEXT_REGISTRY:
+        return GPT2TextEncoder(GPT2EncoderConfig(**GPT2_TEXT_REGISTRY[name]), dtype)
+    return BertEncoder(text_config(name), dtype)
+
+
+def text_width(tower) -> int:
+    """The width of a text tower's hidden states."""
+    c = tower.cfg
+    return c.n_embd if isinstance(c, GPT2EncoderConfig) else c.hidden_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,7 +175,7 @@ class ASE:
             self.audio_enc = HTSAT(**kw)
         else:
             raise ValueError(f"unknown audio encoder {cfg.audio_encoder!r}")
-        self.text_enc = BertEncoder(text_config(cfg.text_model), cfg.dtype)
+        self.text_enc = build_text_tower(cfg.text_model, cfg.dtype)
 
     def _audio(self, variables, spec, train: bool, generator):
         """(L2-normalized audio embeddings, the tower's new batch_stats or None)."""
@@ -157,8 +191,8 @@ class ASE:
         return self._audio(variables, spec, train, generator)[0]
 
     def encode_text(self, variables, input_ids, attention_mask=None, train: bool = False):
-        """-> [B, embed_size] L2-normalized [CLS] projection (the BERT tower
-        has no dropout, so ``train`` changes nothing)."""
+        """-> [B, embed_size] L2-normalized projection of position 0 (the
+        text towers have no dropout, so ``train`` changes nothing)."""
         p = variables["params"]
         hidden = self.text_enc.apply(p["text_enc"], input_ids, attention_mask)
         return _l2norm(_proj(hidden[:, 0, :], p["text_proj"], self.cfg.dtype))
@@ -201,9 +235,15 @@ def init_ase(cfg: ASEConfig, seed: int = 0, device="cuda") -> dict:
                 "fc2": {"kernel": (torch.randn(E, E, generator=g) * E ** -0.5).to(dev),
                         "bias": torch.zeros(E, device=dev)}}
 
-    params = {"audio_enc": audio["params"],
-              "text_enc": init_bert(ase.text_enc.cfg, g, dev),
+    tower = ase.text_enc
+    if isinstance(tower, CLIPTextEncoder):
+        text = init_clip_text(tower.cfg, g, dev)
+    elif isinstance(tower, GPT2TextEncoder):
+        text = init_gpt2_encoder(tower.cfg, g, dev)
+    else:
+        text = init_bert(tower.cfg, g, dev)
+    params = {"audio_enc": audio["params"], "text_enc": text,
               "audio_proj": proj(ase.audio_enc.num_features),
-              "text_proj": proj(ase.text_enc.cfg.hidden_size),
+              "text_proj": proj(text_width(tower)),
               "temp": torch.tensor(cfg.temp, device=dev)}
     return {"params": params, "batch_stats": {"audio_enc": audio["batch_stats"]}}

@@ -49,7 +49,7 @@ from zs_aac_tpu_torch.models.mapper import MLP, TransformerMapper
 from zs_aac_tpu_torch.utils.device import resolve_device
 
 __all__ = ["from_jax_params", "to_jax_params", "tree_map", "cast_floating", "state_dict_tensors",
-           "convert_cnn", "convert_resnet38", "convert_htsat", "convert_ase"]
+           "linear_kernel", "convert_cnn", "convert_resnet38", "convert_htsat", "convert_ase"]
 
 
 def tree_map(fn, tree):
@@ -241,6 +241,11 @@ def state_dict_tensors(state_dict: Mapping, device) -> dict:
     return out
 
 
+def linear_kernel(w: torch.Tensor) -> torch.Tensor:
+    """torch ``Linear`` weight ``[out, in]`` -> a Dense kernel ``[in, out]``."""
+    return w.t().contiguous()
+
+
 class _Tree:
     """``{"params", "batch_stats"}`` filled from a reference state dict
     (tensors on the device, floats fp32): conv weights OIHW -> HWIO,
@@ -371,12 +376,15 @@ def convert_ase(state_dict: Mapping, cfg, device="cuda") -> dict:
     ``audio_proj.{0,2}.*``, ``text_proj.{0,2}.*``, ``temp``) ->
     ``models.ase.ASE`` variables. ``cfg`` is an ``ASEConfig``; the audio
     tower is HTSAT, ResNet38 or Cnn14 (``len(cfg.audio_channels)`` blocks,
-    else 6), the text tower one of the BERT family."""
-    from zs_aac_tpu_torch.models.ase import text_config
+    else 6), the text tower a CLIP (``CLIPTextModel`` layout), GPT-2
+    (``GPT2Model`` layout) or BERT-family one, as the JAX ``convert_ase``
+    picks it."""
+    from zs_aac_tpu_torch.models.ase import CLIP_TEXT_REGISTRY, GPT2_TEXT_REGISTRY, text_config
     from zs_aac_tpu_torch.models.bert import convert_bert
+    from zs_aac_tpu_torch.models.text_towers import (CLIPTextConfig, GPT2EncoderConfig,
+                                                     convert_clip_text, convert_gpt2_encoder)
 
     dev = resolve_device(device)
-    tcfg = text_config(cfg.text_model)
 
     def sub(prefix):
         return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
@@ -389,7 +397,15 @@ def convert_ase(state_dict: Mapping, cfg, device="cuda") -> dict:
     else:
         n_blocks = len(cfg.audio_channels) if cfg.audio_channels else 6
         audio = convert_cnn(audio_sd, n_blocks=n_blocks, device=dev)
-    text = convert_bert(sub("text_encoder.text_encoder."), tcfg, device=dev)
+    text_sd = sub("text_encoder.text_encoder.")
+    if cfg.text_model in CLIP_TEXT_REGISTRY:
+        text = convert_clip_text(text_sd, CLIPTextConfig(**CLIP_TEXT_REGISTRY[cfg.text_model]),
+                                 device=dev)
+    elif cfg.text_model in GPT2_TEXT_REGISTRY:
+        text = convert_gpt2_encoder(
+            text_sd, GPT2EncoderConfig(**GPT2_TEXT_REGISTRY[cfg.text_model]), device=dev)
+    else:
+        text = convert_bert(text_sd, text_config(cfg.text_model), device=dev)
     sd = state_dict_tensors({k: v for k, v in state_dict.items()
                       if k.startswith(("audio_proj.", "text_proj.")) or k == "temp"}, dev)
 

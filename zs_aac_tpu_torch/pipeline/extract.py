@@ -16,7 +16,8 @@ reference-layout ``.pt`` file, both read with ``torch.load(weights_only=True)``
 (``utils.checkpoints.load_ase_variables``). Orbax train-state checkpoints of
 the JAX package are not read yet.
 
-Run (``--config`` needs ``pyyaml``):
+Run (``--config`` is read by ``utils.config.load_config``, the YAML subset of
+the repo's configs, or JSON; the CSV corpora by the ``csv`` module):
   python -m zs_aac_tpu_torch.pipeline.extract --config configs/extract_data.yaml \\
       --dataset_path data/clotho --out_path data/clotho --device cuda
   python -m zs_aac_tpu_torch.pipeline.extract --corpus audioset --text_input \\
@@ -170,6 +171,17 @@ def extract_audio_text_bank(encode_audio: Callable, encode_text: Callable, data_
     return out
 
 
+def _csv_column(path: str, name: str) -> List[str]:
+    """One column of a comma-separated file with a header row, as
+    ``pandas.read_csv(path)[name]`` gives it for text: quoted fields with
+    commas or quotes unquoted, blank lines skipped, an empty cell as
+    ``"nan"`` (the string of pandas' missing value)."""
+    import csv
+
+    with open(path, newline="", encoding="utf-8") as f:
+        return [row[name] if row[name] else "nan" for row in csv.DictReader(f)]
+
+
 def _corpus_texts(corpus: str, path: str) -> List[dict]:
     """{caption}-bearing rows of each supported text corpus."""
     if corpus == "wavcaps_json":
@@ -191,11 +203,8 @@ def _corpus_texts(corpus: str, path: str) -> List[dict]:
         return [{"caption": sent.strip()} for row in data
                 for sent in row["caption"].split(". ") if 5 <= len(sent.split()) <= 20]
     if corpus == "musiccaps":  # the reference's len() comparison, fixed
-        import pandas as pd
-
-        df = pd.read_csv(path)
-        return [{"caption": sent.strip()} for cap in df["caption"]
-                for sent in str(cap).split(". ") if 5 <= len(sent.split()) <= 20]
+        return [{"caption": sent.strip()} for cap in _csv_column(path, "caption")
+                for sent in cap.split(". ") if 5 <= len(sent.split()) <= 20]
     if corpus == "coco":
         with open(path) as f:
             anns = json.load(f)["annotations"]
@@ -205,10 +214,8 @@ def _corpus_texts(corpus: str, path: str) -> List[dict]:
             lines = [l.strip() for l in f]
         return [{"caption": l, "text_id": i} for i, l in enumerate(lines) if len(l) > 1]
     if corpus == "audioset":  # label bank
-        import pandas as pd
-
-        df = pd.read_csv(path)
-        return [{"label": name, "label_id": i} for i, name in enumerate(df["display_name"])]
+        return [{"label": name, "label_id": i}
+                for i, name in enumerate(_csv_column(path, "display_name"))]
     raise ValueError(f"unknown corpus {corpus!r}")
 
 
@@ -247,10 +254,9 @@ def main(argv=None):
     from zs_aac_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)
-    import yaml
+    from zs_aac_tpu_torch.utils.config import load_config
 
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    config = load_config(args.config)
     encode_audio, encode_text = load_ase_encoders(config, args.ckpt, device=args.device)
 
     if args.corpus:

@@ -34,6 +34,18 @@ clip index as the positive id), ``TRAIN_STEPS`` steps of ``TRAIN_OPTIM``:
 the losses, per-leaf checksums of the updated parameters (``checksums``)
 and the updated batch statistics.
 
+``tiny_text_towers/``: two tiny ASEs with the CLIP and GPT-2 text towers,
+written by the JAX package (``PYTHONPATH=. python
+tests/test_torch_text_towers.py --write-fixture`` regenerates them):
+``gpt2-tiny.msgpack`` and ``clip-tiny.msgpack`` (its parameter snapshots of
+a seeded init: Cnn14 (4, 8) over 64 mels, embed 32, the tower named), each
+with its ``.json`` sidecar, ``tiny_clap``'s ``vocab.txt``, and
+``expected.json``: the id matrix (first tokens varied, padded rows) and
+mask, and per tower the JAX towers' hidden states ``[B, L, D]`` and the
+ASE's text embeddings of those ids, and the captions JAX ``predict_prompt
+--magic --magic_width 5`` wrote for the tiny captioner's test bank with
+each checkpoint as ``--clap_ckpt``.
+
 ``tiny_mistral/``: a tiny Mistral + LoRA multilingual captioner made by the
 JAX package's CLIs (``PYTHONPATH=. python tests/test_torch_multilingual.py
 --write-fixture`` regenerates it): ``spm.model``, a SentencePiece BPE model
@@ -64,7 +76,8 @@ __all__ = ["FIXTURE_DIR", "TINY_ASE_DIR", "TINY_CLAP_DIR", "stage_tiny_captioner
            "caption_train_batch", "replay_caption_train_fixture", "TINY_MISTRAL_DIR",
            "MISTRAL_TRAIN_STEPS", "MISTRAL_TRAIN_OPTIM", "write_word_bpe_model",
            "stage_tiny_mistral", "mistral_fixture_config", "mistral_train_batch",
-           "replay_mistral_train_fixture"]
+           "replay_mistral_train_fixture", "TINY_TEXT_TOWERS_DIR", "TEXT_TOWERS",
+           "stage_tiny_text_towers"]
 
 # the recorded train run: Adam under a clip of the global norm at 2, cosine
 # schedule with one warmup step over TRAIN_STEPS steps
@@ -84,6 +97,8 @@ FIXTURE_DIR = Path(__file__).resolve().parent / "tiny_captioner"
 TINY_MISTRAL_DIR = Path(__file__).resolve().parent / "tiny_mistral"
 TINY_ASE_DIR = Path(__file__).resolve().parent / "tiny_ase"
 TINY_CLAP_DIR = Path(__file__).resolve().parent / "tiny_clap"
+TINY_TEXT_TOWERS_DIR = Path(__file__).resolve().parent / "tiny_text_towers"
+TEXT_TOWERS = ("gpt2-tiny", "clip-tiny")
 
 
 def clap_waves() -> np.ndarray:
@@ -120,6 +135,23 @@ def stage_tiny_captioner(dst) -> dict:
     return {"run_dir": str(run), "test_bank": str(dst / "test.pkl"),
             "clap_ckpt": str(clap / "ase.msgpack"),
             "expected": json.loads((FIXTURE_DIR / "expected.json").read_text())}
+
+
+def stage_tiny_text_towers(dst) -> dict:
+    """Copy the two tiny-tower ASE checkpoints into ``dst`` with their
+    sidecars' vocabulary pointed at a copy. Returns {tower name: checkpoint
+    path} and "expected": the record."""
+    dst = Path(dst)
+    dst.mkdir(parents=True, exist_ok=True)
+    shutil.copy(TINY_TEXT_TOWERS_DIR / "vocab.txt", dst / "vocab.txt")
+    out = {"expected": json.loads((TINY_TEXT_TOWERS_DIR / "expected.json").read_text())}
+    for name in TEXT_TOWERS:
+        shutil.copy(TINY_TEXT_TOWERS_DIR / f"{name}.msgpack", dst / f"{name}.msgpack")
+        sidecar = json.loads((TINY_TEXT_TOWERS_DIR / f"{name}.msgpack.json").read_text())
+        sidecar["bert_tokenizer"] = str(dst / sidecar["bert_tokenizer"])
+        (dst / f"{name}.msgpack.json").write_text(json.dumps(sidecar))
+        out[name] = str(dst / f"{name}.msgpack")
+    return out
 
 
 def stage_tiny_ase(dst) -> dict:

@@ -10,7 +10,8 @@ CUDA device).
 
 Run: ``python -m zs_aac_tpu_torch.train.finetune -c configs/train.yaml -d
 Clotho --pretrain_path outputs/.../best_model.ckpt --device cuda`` (``-c``
-needs ``pyyaml``; ``run(config, dataset)`` takes the config as a dict).
+is read by ``utils.config.load_config``; ``run(config, dataset)`` takes the
+config as a dict).
 """
 
 from __future__ import annotations
@@ -45,10 +46,9 @@ def main(argv=None):
     from zs_aac_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)
-    import yaml
+    from zs_aac_tpu_torch.utils.config import load_config
 
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    config = load_config(args.config)
     if args.lr:
         config["optim_args"]["lr"] = args.lr
     if args.epochs:

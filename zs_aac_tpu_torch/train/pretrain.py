@@ -21,8 +21,9 @@ multi-GPU data parallelism waits for its slice. Checkpoints are the port's
 own (``utils.checkpoints``).
 
 Run: ``python -m zs_aac_tpu_torch.train.pretrain -c configs/pretrain.yaml
---device cuda`` (``-c`` needs ``pyyaml``; ``run(config)``
-takes the config as a dict).
+--device cuda`` (``-c`` is read by ``utils.config.load_config``, the YAML
+subset of the repo's configs, or JSON; ``run(config)`` takes the config as
+a dict).
 """
 
 from __future__ import annotations
@@ -319,10 +320,9 @@ def main(argv=None):
     from zs_aac_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)
-    import yaml
+    from zs_aac_tpu_torch.utils.config import load_config
 
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    config = load_config(args.config)
     if args.lr:
         config["optim_args"]["lr"] = args.lr
     if args.model_type:
