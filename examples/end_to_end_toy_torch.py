@@ -24,29 +24,24 @@ they wrote; ``file_contracts`` lists the files each stage must leave and
 ``supervised_hits`` counts the supervised captions that name their clip's
 class word.
 
-The toy's CLAP (Cnn14 (4, 8), embed 16, batch 8) often learns nothing:
-its contrastive loss stays at chance (ln 8), or leaves it while the audio
-embeddings it extracts stay nearly one vector for every clip, in the JAX
-package as in the port; which seeds learn is chaotic (a thread count
-changes it). Its banks then cannot tell the classes apart and no captioner
-can name a clip's class. ``--seeds`` lists pretrain seeds to try in turn:
-they pretrain in waves of ``WAVE`` side by side, and the toy takes the
-first seed in order whose audio embeddings of the 24 clips (the test bank)
-have not collapsed (mean pairwise cosine at most ``COLLAPSED``), printing
-each collapsed one before it. The default is the JAX toy's seed 20 alone.
-On a card the CLIs run without TF32 (the toy computes in fp32, as the JAX
-toy's CPU run does).
+The toy's CLAP (Cnn14 (4, 8), embed 16, batch 8) separates the classes for
+only a few pretrain seeds, in the JAX package as in the port: most runs stay
+at chance (loss ln 8) or give one audio embedding for every clip, and then no
+captioner can name a clip's class. Which runs separate depends on the random
+draws (the port's ``torch.Generator`` draws are not JAX's bits, and a card's
+generator is not the CPU's) and on rounding: the JAX toy's seed 20 separates
+in fp32 but not in fp64 (``tests/test_torch_toy.py --seed-stats``; ROADMAP.md
+section C). The CLIs run without TF32 on a card (the toy computes in fp32, as
+the JAX toy's CPU run does).
 
 Run: python examples/end_to_end_toy_torch.py [workdir] [--device cuda|cpu]
      [--epochs PRETRAIN CAPTION SUPERVISED]   (defaults 100 100 80, the JAX toy's)
-     [--seeds 20 21 22]
 """
 
 import argparse
 import csv
 import json
 import os
-import shutil
 import subprocess
 import sys
 import time
@@ -59,12 +54,6 @@ VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", ".", ",", "there", "are", "in",
          "this", "audio", "something", "sound", "a", "the"] + WORDS
 EPOCHS = (100, 100, 80)        # pretrain, zero-shot captioner, supervised captioner
 BATCH = 8
-# mean pairwise cosine of the 24 clips' audio embeddings above which the
-# CLAP has collapsed. Seven full runs on the CPU: at 0.943-0.9997 the
-# supervised captions named their clip's class for 3-6 of 24 clips, at
-# 0.867-0.916 (the port) and 0.759 (the JAX toy's seed 20) for 17-24
-COLLAPSED = 0.93
-WAVE = 4                       # pretrain seeds run side by side
 
 
 def synth_corpus(root: str, n: int = 24) -> str:
@@ -140,84 +129,51 @@ def _last_run(runs: str) -> str:
     return os.path.join(runs, sorted(os.listdir(runs))[-1])
 
 
-def audio_spread(bank_path: str) -> float:
-    """Mean pairwise cosine of a bank's audio embeddings (1: all alike)."""
-    import pickle
-
-    with open(bank_path, "rb") as f:
-        a = np.concatenate([np.asarray(r["audio_embedding"], np.float64).reshape(1, -1)
-                            for r in pickle.load(f)])
-    a /= np.linalg.norm(a, axis=1, keepdims=True)
-    n = len(a)
-    return float(((a @ a.T).sum() - n) / (n * (n - 1)))
+def _run_dir(root: str, seed: int) -> str:
+    return os.path.join(root, "outputs", f"toy_Cnn14_lr_0.002_seed_{seed}")
 
 
-def _seed_config(root: str, seed: int) -> str:
-    return os.path.join(root, f"config_seed{seed}.json")
-
-
-def _ckpt(root: str, seed: int) -> str:
-    return os.path.join(root, "outputs", f"toy_Cnn14_lr_0.002_seed_{seed}", "models",
-                        "best_model.ckpt")
-
-
-def pretrain_losses(root: str, seed: int) -> list:
+def pretrain_losses(root: str, seed: int = 20) -> list:
     """The pretrain driver's epoch losses at ``seed`` (from its log)."""
-    log = os.path.join(root, "outputs", f"toy_Cnn14_lr_0.002_seed_{seed}", "logging",
-                       "output.log")
-    with open(log) as f:
+    with open(os.path.join(_run_dir(root, seed), "logging", "output.log")) as f:
         return [float(line.split("loss ")[1].split(",")[0]) for line in f if ": loss " in line]
 
 
-def run_toy(root: str, device: str = "cuda", epochs=EPOCHS, env=None, log=print,
-            stdout=None, seeds=(20,)) -> dict:
-    """Run the eight stages into ``root`` on ``device``; ``epochs`` are
-    (pretrain, zero-shot captioner, supervised captioner); the CLIs write to
-    ``stdout`` (a file; default: this process's); ``seeds`` are the pretrain
-    seeds to try (see the module doc). Returns the paths the stages wrote,
-    with the two run dirs, the seed taken, its epoch losses and its audio
-    embeddings' mean pairwise cosine."""
-    root = os.path.abspath(root)
-    os.makedirs(root, exist_ok=True)
+def runner(env=None, log=print, stdout=None):
+    """``run(*args)``: ``python -m *args`` in a subprocess (its output to
+    ``stdout``, a file; default: this process's), logged with its wall time;
+    raises if it fails."""
     env = dict(os.environ if env is None else env)
     env.setdefault("WANDB_MODE", "disabled")
     # the toy computes in fp32 (its config sets no compute_dtype), as the JAX
-    # toy's CPU run that names every class does: no TF32 convolutions on a card
+    # toy's CPU run does: no TF32 convolutions on a card
     env.setdefault("NVIDIA_TF32_OVERRIDE", "0")
-    p = _paths(root)
-    dev = ["--device", device]
-
-    def run_all(commands):
-        """The CLIs side by side; raises if one fails."""
-        t0 = time.perf_counter()
-        procs = []
-        for args in commands:
-            log("\n$ " + " ".join(args))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", *args], env=env, stdout=stdout,
-                stderr=subprocess.STDOUT if stdout is not None else None))
-        codes = [proc.wait() for proc in procs]
-        for args, code in zip(commands, codes):
-            if code:
-                raise subprocess.CalledProcessError(code, args)
-        log(f"  ({commands[0][0].rsplit('.', 1)[-1]} x{len(commands)}: "
-            f"{time.perf_counter() - t0:.1f} s)")
 
     def run(*args):
-        run_all([args])
+        log("\n$ " + " ".join(args))
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", *args], env=env, stdout=stdout, check=True,
+                       stderr=subprocess.STDOUT if stdout is not None else None)
+        log(f"  ({args[0].rsplit('.', 1)[-1]}: {time.perf_counter() - t0:.1f} s)")
 
+    return run
+
+
+def prepare(root: str, run) -> dict:
+    """Stage 1 into ``root``: the corpus, the vocabulary, ``pipeline.prepare``
+    (dev stands in for train/val/test) and the pretraining manifest. Returns
+    the paths of ``_paths``."""
+    root = os.path.abspath(root)
+    os.makedirs(root, exist_ok=True)
+    p = _paths(root)
     raw = synth_corpus(root)
     with open(os.path.join(root, "bert_vocab.txt"), "w") as f:
         f.write("\n".join(VOCAB) + "\n")
-
-    # 1. prepare; dev stands in for train/val/test
     run("zs_aac_tpu_torch.pipeline.prepare", "clotho", raw, p["prepared"], "--version", "1")
     for split in ("train", "val", "test"):
         dst = os.path.join(p["prepared"], split)
         if not os.path.exists(dst):
             os.symlink(os.path.join(p["prepared"], "dev"), dst)
-
-    # the pretraining manifest from the prepared corpus
     with open(os.path.join(p["prepared"], "dev", "text.json")) as f:
         audios = json.load(f)["audios"]
     with open(os.path.join(p["prepared"], "dev", "wav.csv"), newline="") as f:
@@ -226,46 +182,53 @@ def run_toy(root: str, device: str = "cuda", epochs=EPOCHS, env=None, log=print,
              "id": i, "duration": 2.0} for i, a in enumerate(audios)]
     with open(os.path.join(root, "pretrain.json"), "w") as f:
         json.dump({"num_captions_per_audio": 1, "data": data}, f)
+    return p
 
-    # 2. pretrain CLAP, in waves of seeds run side by side, and take the
-    # first seed in order whose audio embeddings did not collapse
-    chosen = None
-    for w in range(0, len(seeds), WAVE):
-        wave = seeds[w:w + WAVE]
-        for seed in wave:
-            with open(_seed_config(root, seed), "w") as f:
-                json.dump(toy_config(root, epochs[0], seed), f, indent=1)
-        run_all([("zs_aac_tpu_torch.train.pretrain", "-c", _seed_config(root, seed), *dev)
-                 for seed in wave])
-        for seed in wave:
-            cfg = dict(toy_config(root, epochs[0], seed), pretrain_path=_ckpt(root, seed))
-            with open(_seed_config(root, seed), "w") as f:
-                json.dump(cfg, f, indent=1)
-        run_all([("zs_aac_tpu_torch.pipeline.extract", "--config", _seed_config(root, seed),
-                  "--dataset_path", p["prepared"], "--splits", "test", "--out_path",
-                  os.path.join(root, "check", str(seed)), "--batch", "8", *dev)
-                 for seed in wave])
-        for seed in wave:
-            check = os.path.join(root, "check", str(seed), "test", "clap_embedding", "ZS",
-                                 "data.pkl")
-            p.update(seed=seed, pretrain_losses=pretrain_losses(root, seed),
-                     ckpt=_ckpt(root, seed), audio_spread=audio_spread(check))
-            if p["audio_spread"] <= COLLAPSED:
-                chosen = seed
-                break
-            if seed != seeds[-1]:
-                log(f"\npretrain at seed {seed} (lowest epoch loss "
-                    f"{min(p['pretrain_losses']):.4f}, chance {np.log(BATCH):.4f}): the audio "
-                    f"embeddings collapsed (mean pairwise cosine {p['audio_spread']:.4f} > "
-                    f"{COLLAPSED}); next seed {seeds[seeds.index(seed) + 1]}")
-        if chosen is not None:
-            break
-    shutil.copy(_seed_config(root, p["seed"]), p["config"])
 
-    # 3. the embedding banks of the CLAP taken
+def supervised(run, train_bank: str, test_bank: str, out_dir: str, epochs: int,
+               device: str) -> str:
+    """Stage 8, the supervised sanity path: ``train_prompt`` on the AUDIO
+    embeddings of ``train_bank`` and ``predict_prompt`` on ``test_bank``.
+    Returns the run dir."""
+    dev = ["--device", device]
+    run("zs_aac_tpu_torch.train.train_prompt", "--data", train_bank, "--valdata", test_bank,
+        "--out_dir", out_dir, "--bs", "8", "--epochs", str(epochs), "--warmup", "0",
+        "--val_interval", "200", "--lr", "3e-3", "--gpt2_size", "tiny", "--prefix_length",
+        "4", "--prefix_length_clip", "4", "--prefix_dim", "16", "--use_audio_embedding",
+        "--normalize_prefix", *dev)
+    run_dir = _last_run(out_dir)
+    run("zs_aac_tpu_torch.train.predict_prompt", "--test_dir", run_dir, "--data", test_bank,
+        *dev)
+    return run_dir
+
+
+def run_toy(root: str, device: str = "cuda", epochs=EPOCHS, env=None, log=print,
+            stdout=None) -> dict:
+    """Run the eight stages into ``root`` on ``device``; ``epochs`` are
+    (pretrain, zero-shot captioner, supervised captioner); the CLIs write to
+    ``stdout`` (a file; default: this process's). Returns the paths the
+    stages wrote, with the CLAP checkpoint, its epoch losses and the two run
+    dirs."""
+    root = os.path.abspath(root)
+    run = runner(env, log, stdout)
+    dev = ["--device", device]
+
+    # 1. prepare
+    p = prepare(root, run)
+
+    # 2. pretrain CLAP at the config's seed (the JAX toy's 20)
+    config = toy_config(root, epochs[0])
+    with open(p["config"], "w") as f:
+        json.dump(config, f, indent=1)
+    run("zs_aac_tpu_torch.train.pretrain", "-c", p["config"], *dev)
+    p.update(ckpt=os.path.join(_run_dir(root, config["seed"]), "models", "best_model.ckpt"),
+             pretrain_losses=pretrain_losses(root, config["seed"]))
+    with open(p["config"], "w") as f:
+        json.dump(dict(config, pretrain_path=p["ckpt"]), f, indent=1)
+
+    # 3. the embedding banks
     run("zs_aac_tpu_torch.pipeline.extract", "--config", p["config"], "--dataset_path",
         p["prepared"], "--out_path", os.path.join(root, "banks"), "--batch", "8", *dev)
-
     # 4. an AudioSet-style label bank for the hard prompts
     labels_csv = os.path.join(root, "labels.csv")
     with open(labels_csv, "w", newline="") as f:
@@ -291,14 +254,8 @@ def run_toy(root: str, device: str = "cuda", epochs=EPOCHS, env=None, log=print,
         p["banks"]["test"], "--sound_effect", p["label_bank"], "--isbeam", *dev)
 
     # 8. the supervised sanity path: trained on AUDIO embeddings
-    run("zs_aac_tpu_torch.train.train_prompt", "--data", p["banks"]["train"], "--valdata",
-        p["banks"]["test"], "--out_dir", p["supervised_runs"], "--bs", "8", "--epochs",
-        str(epochs[2]), "--warmup", "0", "--val_interval", "200", "--lr", "3e-3",
-        "--gpt2_size", "tiny", "--prefix_length", "4", "--prefix_length_clip", "4",
-        "--prefix_dim", "16", "--use_audio_embedding", "--normalize_prefix", *dev)
-    p["supervised_run_dir"] = _last_run(p["supervised_runs"])
-    run("zs_aac_tpu_torch.train.predict_prompt", "--test_dir", p["supervised_run_dir"],
-        "--data", p["banks"]["test"], *dev)
+    p["supervised_run_dir"] = supervised(run, p["banks"]["train"], p["banks"]["test"],
+                                         p["supervised_runs"], epochs[2], device)
     return p
 
 
@@ -312,12 +269,13 @@ def file_contracts(p: dict) -> list:
             + [p["label_bank"], p["related"]] + runs)
 
 
-def supervised_hits(p: dict):
-    """(clips whose supervised caption names the clip's class word, clips)."""
-    with open(os.path.join(p["prepared"], "dev", "text.json")) as f:
+def supervised_hits(prepared: str, run_dir: str):
+    """(clips whose caption in ``run_dir``'s ``output.txt`` names the clip's
+    class word, clips)."""
+    with open(os.path.join(prepared, "dev", "text.json")) as f:
         word = {a["audio_id"]: a["captions"][0]["caption"].split()[1]
                 for a in json.load(f)["audios"]}
-    with open(os.path.join(p["supervised_run_dir"], "output.txt")) as f:
+    with open(os.path.join(run_dir, "output.txt")) as f:
         preds = json.load(f)["predictions"]
     hits = sum(word[q["filename"]] in q["caption"].replace(".", " ").split() for q in preds)
     return hits, len(preds)
@@ -329,11 +287,8 @@ def main(argv=None):
     ap.add_argument("workdir", nargs="?", default="toy_run_torch")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--epochs", type=int, nargs=3, default=list(EPOCHS))
-    ap.add_argument("--seeds", type=int, nargs="+", default=[20],
-                    help="pretrain seeds to try in turn while the CLAP's audio embeddings "
-                         "collapse")
     args = ap.parse_args(argv)
-    p = run_toy(args.workdir, args.device, tuple(args.epochs), seeds=tuple(args.seeds))
+    p = run_toy(args.workdir, args.device, tuple(args.epochs))
     missing = [f for f in file_contracts(p) if not os.path.exists(f)]
     if missing:
         raise SystemExit(f"missing outputs: {missing}")
@@ -343,10 +298,9 @@ def main(argv=None):
         preds = json.load(open(os.path.join(d, "output.txt")))["predictions"]
         for q in preds[:4]:
             print(" ", q["filename"], "->", q["caption"][:60])
-    hits, n = supervised_hits(p)
-    print(f"\npretrain seed {p['seed']}: lowest epoch loss {min(p['pretrain_losses']):.4f} "
-          f"(chance ln {BATCH} = {np.log(BATCH):.4f}); audio embeddings' mean pairwise cosine "
-          f"{p['audio_spread']:.4f}")
+    hits, n = supervised_hits(p["prepared"], p["supervised_run_dir"])
+    print(f"\npretrain: lowest epoch loss {min(p['pretrain_losses']):.4f} (chance ln {BATCH} "
+          f"= {np.log(BATCH):.4f})")
     print(f"supervised captions naming their clip's class: {hits}/{n}")
     print(f"toy pipeline complete; artifacts in {os.path.abspath(args.workdir)}")
 

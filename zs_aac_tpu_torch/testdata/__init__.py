@@ -46,6 +46,16 @@ ASE's text embeddings of those ids, and the captions JAX ``predict_prompt
 --magic --magic_width 5`` wrote for the tiny captioner's test bank with
 each checkpoint as ``--clap_ckpt``.
 
+``toy_clap/``: the CLAP of the JAX package's end-to-end toy
+(``examples/end_to_end_toy.py``: Cnn14 (4, 8) and a 2-layer BERT over the
+toy's vocabulary, embed 16), trained by the JAX pretrain CLI at the toy's
+config and seed 20 (``PYTHONPATH=. python tests/test_torch_toy.py
+--write-fixture`` regenerates it): ``clap.pt``, its best checkpoint as the
+port's ``{"params", "batch_stats"}`` file, and ``expected.json``: the JAX
+extract's audio embeddings of the toy's 24 clips, the pretrain's lowest
+epoch loss, their mean pairwise cosine and the supervised captions naming
+their class that the JAX toy's stage 8 wrote from those banks.
+
 ``tiny_mistral/``: a tiny Mistral + LoRA multilingual captioner made by the
 JAX package's CLIs (``PYTHONPATH=. python tests/test_torch_multilingual.py
 --write-fixture`` regenerates it): ``spm.model``, a SentencePiece BPE model
@@ -77,7 +87,7 @@ __all__ = ["FIXTURE_DIR", "TINY_ASE_DIR", "TINY_CLAP_DIR", "stage_tiny_captioner
            "MISTRAL_TRAIN_STEPS", "MISTRAL_TRAIN_OPTIM", "write_word_bpe_model",
            "stage_tiny_mistral", "mistral_fixture_config", "mistral_train_batch",
            "replay_mistral_train_fixture", "TINY_TEXT_TOWERS_DIR", "TEXT_TOWERS",
-           "stage_tiny_text_towers"]
+           "stage_tiny_text_towers", "TOY_CLAP_DIR"]
 
 # the recorded train run: Adam under a clip of the global norm at 2, cosine
 # schedule with one warmup step over TRAIN_STEPS steps
@@ -98,6 +108,7 @@ TINY_MISTRAL_DIR = Path(__file__).resolve().parent / "tiny_mistral"
 TINY_ASE_DIR = Path(__file__).resolve().parent / "tiny_ase"
 TINY_CLAP_DIR = Path(__file__).resolve().parent / "tiny_clap"
 TINY_TEXT_TOWERS_DIR = Path(__file__).resolve().parent / "tiny_text_towers"
+TOY_CLAP_DIR = Path(__file__).resolve().parent / "toy_clap"
 TEXT_TOWERS = ("gpt2-tiny", "clip-tiny")
 
 
