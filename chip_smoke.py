@@ -195,7 +195,19 @@ which must pass:
     beside it stages 1, 3 and 8 from the JAX toy's trained CLAP
     (``testdata/toy_clap``): the extracted audio embeddings against the JAX
     record within ``FIXTURE_TOL``, and at least ``TOY_GATE`` of the 24
-    supervised captions (``TOY_SUPERVISED_EPOCHS``) naming their clip's class.
+    supervised captions (``TOY_SUPERVISED_EPOCHS``) naming their clip's class;
+20. multi-GPU on one card: a world-size-1 NCCL group
+    (``parallel.mesh.init_distributed`` with the ``torchrun`` environment
+    set by hand), phase 13's train step through the ``mesh`` path (batch
+    statistics, embeddings and gradients through the collectives) against
+    the mesh-less step from the same state, bitwise in the loss, parameters,
+    batch statistics and Adam's moments of the gradients (a world of one
+    sums nothing), with K2 1, K5/K6 2
+    and K7/K8/K9 10 launches (phase 13's counts); phase 4's bf16 float
+    greedy decode (GPT-2 124M, B=256, 67 steps) with GPT-2 sharded over a
+    ``model`` axis of one (``shard_gpt2_params``, the Megatron path with its
+    f, g and vocabulary gather) giving the unsharded decode's tokens and
+    lengths; the group destroyed.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -3414,6 +3426,198 @@ def phase_text_towers():
     return launches
 
 
+# -- multi-GPU: a world of one over NCCL ------------------------------------------
+
+# Phase 20, the mesh step against the mesh-less step from one state: with one
+# rank every collective returns its input, and the step's kernels and products
+# are deterministic (no atomics; phase 13 checks two runs bitwise), so the two
+# steps must agree bitwise in the loss, every parameter, every batch
+# statistic and the optimizer's state. After one step Adam's moments are
+# (1 - b1) g and (1 - b2) g^2 of every leaf's clipped gradient g, including
+# the leaves whose update rounds away, so a zeroed, scaled, sign-flipped or
+# misplaced gradient in the mesh path's backward (the gathers' adjoints, the
+# moments' reduction, the flattened gradient all-reduce) fails the check.
+
+
+def phase_parallel():
+    """Phase 20: a world-size-1 NCCL group, phase 13's train step through
+    the ``mesh`` path, and phase 4's float greedy decode through the tp = 1
+    Megatron path."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from zs_aac_tpu_torch.decoding.greedy import greedy_decode
+    from zs_aac_tpu_torch.models.caption import (CaptionConfig, caption_embeddings,
+                                                 init_caption_model)
+    from zs_aac_tpu_torch.models.convert import cast_floating
+    from zs_aac_tpu_torch.models.gpt2 import GPT2Config
+    from zs_aac_tpu_torch.ops import window_attn as wa
+    from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel
+    from zs_aac_tpu_torch.parallel.mesh import (destroy_distributed, init_distributed,
+                                                make_mesh, mesh_axis, tp_reduce)
+    from zs_aac_tpu_torch.parallel.tp import shard_gpt2_params
+    from zs_aac_tpu_torch.train.contrastive import create_ase_state, make_ase_train_step
+    from zs_aac_tpu_torch.train.pretrain import build_ase_from_config, build_optimizer
+
+    t_phase = time.perf_counter()
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    try:
+        dev = init_distributed("cuda")
+        check(dist.is_initialized() and dist.get_backend() == "nccl"
+              and dist.get_world_size() == 1 and dev == torch.device("cuda", 0),
+              f"process group: {dist.get_backend()}, world {dist.get_world_size()}, {dev}")
+        mesh = make_mesh(1, 1)
+        print(f"[parallel] NCCL group of one rank on {dev}, mesh {mesh}", flush=True)
+
+        # phase 13's step, mesh-less and through the mesh, from one state
+        B, T, L = 64, 10 * 32000, 30
+        ase, _ = build_ase_from_config(TRAIN_CONFIG, device="cuda")
+        mel_cfg = LogMelConfig.from_dict(TRAIN_CONFIG["audio_args"])
+        optimizer = build_optimizer(TRAIN_CONFIG, steps_per_epoch=1)
+        state = create_ase_state(0, ase, optimizer, device="cuda")
+        batch = _train_batch(B, T, L, torch.Generator(device="cuda").manual_seed(10))
+        want, want_loss = make_ase_train_step(ase, optimizer, mel_cfg, device="cuda")(
+            state, batch, 0)
+        step = make_ase_train_step(ase, optimizer, mel_cfg, device="cuda", mesh=mesh)
+        kernels = {"K2": log_mel, "K5": wa.fused_window_attention,
+                   "K6": wa.window_attention_bwd, "K7": wa.fused_swin_block_train,
+                   "K8": wa.mlp_bwd, "K9": wa.attn_ln1_bwd}
+        for fn in kernels.values():
+            fn.launches = 0
+        got, got_loss = step(state, batch, 0)                # the mesh path, counted
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        check(launches == {"K2": 1, "K5": 2, "K6": 2, "K7": 10, "K8": 10, "K9": 10},
+              f"mesh-step launch counts {launches} off phase 13's")
+        d_loss = abs(got_loss.item() - want_loss.item())
+        d_params = max((a - b).abs().max().item()
+                       for a, b in zip(_leaves(got.params), _leaves(want.params)))
+        d_stats = max((a - b).abs().max().item()
+                      for a, b in zip(_leaves(got.batch_stats), _leaves(want.batch_stats)))
+        opt_pairs = [(a, b) for a, b in zip(_leaves(got.opt_state), _leaves(want.opt_state))
+                     if torch.is_tensor(b) and b.is_floating_point()]
+        d_opt = max((a - b).abs().max().item() for a, b in opt_pairs)
+        moved = sum(not torch.equal(a, b)
+                    for a, b in zip(_leaves(want.params), _leaves(state.params)))
+        n_leaves = len(_leaves(state.params))
+        adam = _find_key(want.opt_state, "mu")
+        check(adam is not None, "phase 13's optimizer keeps no first moment")
+        with_grad = sum(bool(m.ne(0).any()) for m in _leaves(adam["mu"]))
+        print(f"[parallel] train step B={B} through the mesh vs mesh-less: launches {launches}, "
+              f"loss {got_loss.item():.6f} / {want_loss.item():.6f}; max |mesh - mesh-less|: "
+              f"loss {d_loss:.3g}, parameters {d_params:.3g}, batch statistics {d_stats:.3g}, "
+              f"optimizer state {d_opt:.3g} over {len(opt_pairs)} tensors (held bitwise); "
+              f"of {n_leaves} parameter leaves the step moved {moved}, {with_grad} have a "
+              f"nonzero gradient", flush=True)
+        check(moved > 0, "the mesh-less step left every parameter where it was")
+        check(d_opt == 0.0, "the mesh step's optimizer state (its gradients' moments) is not "
+              "bitwise the mesh-less step's")
+        check(d_loss == 0.0, "the mesh step's loss is not bitwise the mesh-less one")
+        check(d_params == 0.0, "the mesh step's parameters are not bitwise the mesh-less step's")
+        check(d_stats == 0.0, "the mesh step's batch statistics are not bitwise the mesh-less "
+              "step's")
+        del want, got
+        walls = {}
+        for name, fn in (("mesh-less", make_ase_train_step(ase, optimizer, mel_cfg,
+                                                            device="cuda")), ("mesh", step)):
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn(state, batch, 0)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            walls[name] = statistics.median(runs)
+        print(f"[parallel] train step, median of 3 synchronized walls: mesh-less "
+              f"{walls['mesh-less']:.2f} ms, mesh {walls['mesh']:.2f} ms", flush=True)
+        _, pwall, dev_ms, events = profiled(lambda: step(state, batch, 0))
+        nccl = sum(e.self_device_time_total for e in events
+                   if e.device_type != torch.autograd.DeviceType.CPU
+                   and "nccl" in e.key.lower()) / 1e3
+        print(f"[parallel] one mesh step under torch.profiler: wall {pwall:.2f} ms, device "
+              f"{dev_ms:.2f} ms (idle {1 - dev_ms / pwall:.1%}), NCCL kernels {nccl:.3f} ms; "
+              f"by host time:", flush=True)
+        print(events.table(sort_by="self_cpu_time_total", row_limit=12), flush=True)
+        del state
+
+        # one collective of one rank, host and device time a call (200 calls)
+        x = torch.zeros(256, 1, 768, dtype=torch.bfloat16, device="cuda")
+        for name, fn in (("dist.all_reduce", lambda: dist.all_reduce(x)),
+                         ("tp_reduce", lambda: tp_reduce(x, mesh_axis(mesh, "model"))),
+                         ("clone", lambda: x.clone())):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            torch.cuda.synchronize()
+            print(f"[parallel] {name} of [256, 1, 768] bf16 on the group of one: "
+                  f"{(time.perf_counter() - t0) / 200 * 1e6:.1f} us a call", flush=True)
+
+        # phase 4's float decode, GPT-2 unsharded and over a model axis of one
+        ccfg = CaptionConfig(prefix_length=10, prefix_size=1024, gpt2=GPT2Config())
+        gcfg = ccfg.gpt2
+        with torch.no_grad():
+            params = init_caption_model(ccfg, seed=0, device="cuda")
+            gp = cast_floating(params["gpt2"], torch.bfloat16)
+            g = torch.Generator(device="cuda").manual_seed(2)
+            prefix = torch.randn(256, ccfg.prefix_size, generator=g, device="cuda")
+            emb = caption_embeddings(params, ccfg, prefix).to(torch.bfloat16)
+        tp = mesh_axis(mesh, "model")
+        shard = shard_gpt2_params(gp, gcfg, tp)
+        toks, lens = greedy_decode(gp, gcfg, emb, 67, 13, 764)
+        tp_toks, tp_lens = greedy_decode(shard, gcfg, emb, 67, 13, 764, tp=tp)
+        same = bool(torch.equal(toks, tp_toks) and torch.equal(lens, tp_lens))
+        dwalls = {}
+        for name, run in (("unsharded", lambda: greedy_decode(gp, gcfg, emb, 67, 13, 764)),
+                          ("tp=1", lambda: greedy_decode(shard, gcfg, emb, 67, 13, 764,
+                                                         tp=tp))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            dwalls[name] = (time.perf_counter() - t0) * 1e3
+        print(f"[parallel] bf16 greedy B=256, 67 steps, tp=1 Megatron path vs unsharded: "
+              f"tokens and lengths equal {same} ({int(lens.sum())} tokens); walls unsharded "
+              f"{dwalls['unsharded']:.1f} ms, tp=1 {dwalls['tp=1']:.1f} ms", flush=True)
+        check(same, "the tp=1 decode's tokens differ from the float path's")
+    finally:
+        destroy_distributed()
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+            os.environ.pop(k, None)
+    check(not dist.is_initialized(), "the process group outlived phase 20")
+    print(f"[parallel] phase 20 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _find_key(tree, key):
+    """The first dict in nested dicts, lists and tuples that holds ``key``."""
+    if isinstance(tree, dict):
+        if key in tree:
+            return tree
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            found = _find_key(v, key)
+            if found is not None:
+                return found
+    return None
+
+
+def _leaves(tree):
+    """Tensors of nested dicts, lists and tuples, in their order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def main():
     import torch
 
@@ -3445,6 +3649,7 @@ def main():
     chain_launches = phase_caption_train()
     phase_mistral()
     tower_launches = phase_text_towers()
+    phase_parallel()
 
     kernels = [{
         "name": "decode_attn_q8",

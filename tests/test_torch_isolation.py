@@ -18,6 +18,9 @@ from zs_aac_tpu_torch.decoding import magic
 from zs_aac_tpu_torch.eval import zero_shot
 from zs_aac_tpu_torch.models import (ase, bert, caption, caption_mistral, cnns, convert, gpt2,
                                      htsat, mapper, mistral, text_towers)
+from zs_aac_tpu_torch.parallel import dryrun as parallel_dryrun
+from zs_aac_tpu_torch.parallel import mesh as parallel_mesh
+from zs_aac_tpu_torch.parallel import tp as parallel_tp
 from zs_aac_tpu_torch.pipeline import extract, related
 from zs_aac_tpu_torch.train import (caption_trainer, contrastive, finetune, optim,
                                     predict_multilingual, predict_prompt, pretrain, train_prompt,
@@ -47,8 +50,10 @@ def test_importing_every_module_loads_no_jax():
     slice13 = {"zs_aac_tpu_torch." + m for m in (
         "models.text_towers", "pipeline.prepare", "pipeline.synthesize", "utils.config",
         "utils.profiling", "utils.types")}
-    assert (kernels | train | captioner | multilingual | slice13 <= set(mods)
-            and len(mods) >= 64)
+    parallel = {"zs_aac_tpu_torch.parallel." + m for m in ("mesh", "tp", "dryrun")}
+    assert {parallel_mesh.__name__, parallel_tp.__name__, parallel_dryrun.__name__} == parallel
+    assert (kernels | train | captioner | multilingual | slice13 | parallel <= set(mods)
+            and len(mods) >= 68)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(sorted({n.split('.')[0] for n in sys.modules} & "
@@ -83,12 +88,15 @@ def test_importing_every_module_loads_no_jax():
                                     "zs_aac_tpu_torch.utils.config",
                                     "zs_aac_tpu_torch.utils.profiling",
                                     "zs_aac_tpu_torch.utils.types",
+                                    "zs_aac_tpu_torch.parallel.mesh",
+                                    "zs_aac_tpu_torch.parallel.tp",
+                                    "zs_aac_tpu_torch.parallel.dryrun",
                                     "examples/end_to_end_toy_torch.py"])
 def test_slice_modules_import_no_jax_pandas_or_yaml(module):
     """The PANNs towers, the zero-shot CLI, the captioner's training modules,
     the Mistral captioner's, the text towers, the host pipeline, the config
-    reader, the profiling utilities and the port's end-to-end toy load in a
-    fresh interpreter without JAX, flax, optax, the JAX package, pandas or
+    reader, the profiling utilities, the multi-GPU modules and the port's
+    end-to-end toy load in a fresh interpreter without JAX, flax, optax, the JAX package, pandas or
     yaml (the card machine has neither of the last two)."""
     load = (f"runpy.run_path({module!r}, run_name='toy')" if module.endswith(".py")
             else f"importlib.import_module({module!r})")
@@ -195,6 +203,8 @@ ENTRY_POINTS = {
     "trace": (profiling.trace, lambda: profiling.trace("x").__enter__()),
     "device_memory_stats": (profiling.device_memory_stats,
                             lambda: profiling.device_memory_stats()),
+    "init_distributed": (parallel_mesh.init_distributed,
+                         lambda: parallel_mesh.init_distributed()),
     "run_multilingual_validation": (
         train_prompt_multilingual.run_multilingual_validation,
         lambda: train_prompt_multilingual.run_multilingual_validation(
@@ -268,3 +278,28 @@ def test_train_drivers_default_to_cuda_and_raise_without_it(driver, monkeypatch,
         driver.main(["-c", str(tmp_path / "none.yaml")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.main(["-c", str(tmp_path / "none.yaml"), "--device", "cuda"])
+
+
+@pytest.mark.parametrize("env", [{}, {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                                      "MASTER_ADDR": "localhost", "MASTER_PORT": "29400"}])
+def test_init_distributed_cuda_raises_without_a_card(env, monkeypatch):
+    """``init_distributed("cuda")`` raises where there is no card, with or
+    without a ``torchrun`` environment: it never carries on over gloo or on
+    the CPU, and it joins no group on the way."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        parallel_mesh.init_distributed("cuda")
+    assert not torch.distributed.is_initialized()
+
+
+def test_init_distributed_cuda_raises_without_nccl(monkeypatch):
+    """A card but no NCCL under ``torchrun``: ``cuda`` raises."""
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.distributed, "is_nccl_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no NCCL"):
+        parallel_mesh.init_distributed("cuda")
+    assert not torch.distributed.is_initialized()

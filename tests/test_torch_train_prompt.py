@@ -14,8 +14,9 @@
   the same captions, greedy and ``--isbeam``.
 - ``--noise_variance 0.016 --use_related_text`` (over a bank that
   ``pipeline/related.py`` wrote) and ``--sound_effect`` runs finish with
-  finite losses; ``--data_parallel`` raises, and a SentencePiece ``.model``
-  tokenizer trains.
+  finite losses; ``--data_parallel`` in one process trains exactly as the
+  run without it (its multi-process runs are in ``test_torch_parallel.py``),
+  and a SentencePiece ``.model`` tokenizer trains.
 
 Each run gets its own ``--out_dir``: both drivers name the run dir by the
 second.
@@ -228,16 +229,23 @@ def test_related_text_with_noise_and_sound_effect_runs(banks, tmp_path):
 
 @pytest.mark.parametrize("extra", [["--data_parallel"], ["--tokenizer", "spm.model"]])
 def test_later_slices_raise(banks, tmp_path, extra):
-    """``--data_parallel`` (multi-GPU, a later slice) raises. A SentencePiece
-    ``.model`` tokenizer was refused the same way until the Mistral slice
-    ported it: now the driver trains with one (finite losses, the run's
+    """Both flags were refused until their slices ported them.
+    ``--data_parallel`` (the multi-GPU slice) in one process, with no
+    ``torchrun`` environment, runs the one-process step: its ``last.pth``
+    is bitwise the run's without the flag. A SentencePiece ``.model``
+    tokenizer (the Mistral slice) trains (finite losses, the run's
     vocabulary the model's)."""
     from zs_aac_tpu_torch import testdata
     from zs_aac_tpu_torch.train.train_prompt import main as t_train
 
     if extra[0] == "--data_parallel":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            t_train(_driver_args(banks, str(tmp_path), "--device", "cpu", *extra))
+        runs = [t_train(_driver_args(banks, str(tmp_path / name), "--device", "cpu",
+                                     "--max_iters", "3", *flags))
+                for name, flags in (("plain", ()), ("dp", extra))]
+        plain, dp = (_flat(tck.load_params(os.path.join(r, "last.pth"))) for r in runs)
+        assert sorted(plain) == sorted(dp)
+        assert all(np.array_equal(plain[k], dp[k]) for k in plain)
+        assert json.load(open(os.path.join(runs[1], "params.json")))["data_parallel"]
         return
     spm = str(tmp_path / extra[1])
     tok = testdata.write_word_bpe_model(spm, " ".join(CAPTIONS).split())

@@ -9,9 +9,17 @@ train/val/test with 5-caption flattening). Batches pad to the bucket's
 upper edge, as the JAX package's do, so both give the same batches for a
 seed.
 
-One process: the JAX package's multi-host slicing (``process_index``-strided
-batches, ``local_batch_slice``) is the identity here; multi-process
-sharding comes with the multi-GPU port.
+Multi-process (``parallel.mesh``; the identity in one process): every
+process builds the same global batches from the same seed and loads only
+its rows. ``pretrain_batches`` and the data module's ``train_batches`` give
+each process its ``local_batch_slice`` of every global batch (the pad
+length from the global batch's metadata), so the global batch is the one
+one process would train on; the JAX package strides its data module's
+training batches over processes as well, which makes its global batch grow
+with the process count. ``val_batches``/``test_batches`` give each process
+every ``process_count``-th batch, tagged with its global row ids
+(``"index"``) for ``allgather_by_index``, as the JAX package's do; their
+``max_batches`` caps the global batches before they are strided.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import numpy as np
 from zs_aac_tpu_torch.data.audio_io import load_audio, random_crop
 from zs_aac_tpu_torch.data.sampler import BySequenceLengthSampler, bucket_pad_length
 from zs_aac_tpu_torch.data.text_transform import text_preprocess
+from zs_aac_tpu_torch.parallel.mesh import local_batch_slice, process_count, process_index
 
 __all__ = [
     "load_manifest_files",
@@ -166,7 +175,9 @@ def pretrain_batches(
 ) -> Iterator[Dict]:
     """Bucketed batches; each bucket pads to its upper edge (static shapes).
 
-    The pad length comes from the batch's bucket (manifest durations).
+    Each process loads its ``local_batch_slice`` of every global batch. The
+    pad length comes from the global batch's bucket (manifest durations),
+    so every process's rows have one shape.
     """
     if hasattr(dataset, "lengths"):
         lengths = dataset.lengths
@@ -180,7 +191,7 @@ def pretrain_batches(
         lengths, bucket_boundaries, batch_size, drop_last=True, seed=seed,
     )
     for batch_idx in sampler:
-        items = [dataset[i] for i in batch_idx]
+        items = [dataset[i] for i in list(batch_idx)[local_batch_slice(len(batch_idx))]]
         pad = None
         if static_shapes:
             # pad from metadata only; a wave longer than its metadata bucket
@@ -203,16 +214,25 @@ class AudioCaptionDataModule:
         self.text_len = config.get("text_len", 30)
         self.pad_samples = audio.get("max_length", 30) * audio["sr"]
 
-    def _batches(self, ds, shuffle: bool, seed: int = 0, drop_last: bool = False):
+    def _batches(self, ds, shuffle: bool, seed: int = 0, drop_last: bool = False,
+                 max_batches: Optional[int] = None):
+        """Training (``drop_last``): this process's rows of every global
+        batch. Evaluation: every ``process_count``-th whole batch of the
+        first ``max_batches`` (all by default), so a capped evaluation
+        covers the same rows at any world size."""
         idx = np.arange(len(ds))
         if shuffle:
             np.random.default_rng(seed).shuffle(idx)
         starts = list(range(0, len(idx) - (self.batch_size - 1 if drop_last else 0),
                             self.batch_size))
+        if not drop_last:
+            starts = starts[:max_batches or None][process_index()::process_count()]
         for s in starts:
             sel = idx[s : s + self.batch_size]
             if drop_last and len(sel) < self.batch_size:
                 continue
+            if drop_last:
+                sel = sel[local_batch_slice(len(sel))]
             batch = _collate([ds[int(i)] for i in sel], self.tokenizer,
                              self.text_len, self.pad_samples)
             batch["index"] = np.asarray(sel, np.int64)
@@ -221,8 +241,8 @@ class AudioCaptionDataModule:
     def train_batches(self, seed: int = 0):
         return self._batches(self.train_set, True, seed, drop_last=True)
 
-    def val_batches(self):
-        return self._batches(self.val_set, False)
+    def val_batches(self, max_batches: Optional[int] = None):
+        return self._batches(self.val_set, False, max_batches=max_batches)
 
-    def test_batches(self):
-        return self._batches(self.test_set, False)
+    def test_batches(self, max_batches: Optional[int] = None):
+        return self._batches(self.test_set, False, max_batches=max_batches)

@@ -109,7 +109,7 @@ def _beam_select(logits, scores, seq_lengths, is_stopped, temperature, B, K):
 
 @torch.no_grad()
 def _beam(params, prefix_embeds, K, entry_length, stop_token_id, temperature,
-          cache, prefill, step):
+          cache, prefill, step, tp=None):
     B, Lp, _ = prefix_embeds.shape
     dev = prefix_embeds.device
     logits, cache = prefill(prefix_embeds, cache)
@@ -123,7 +123,7 @@ def _beam(params, prefix_embeds, K, entry_length, stop_token_id, temperature,
     for i in range(1, entry_length):
         if (i - 1) % CHECK_EVERY == 0 and bool(is_stopped.all()):
             break
-        logits, cache = step(gpt2_embed(params, cur.reshape(-1)), cache, Lp + i - 1)
+        logits, cache = step(gpt2_embed(params, cur.reshape(-1), tp), cache, Lp + i - 1)
         top_avg, src, cur, new_len = _beam_select(
             logits, scores, seq_lengths, is_stopped, temperature, B, K)
         reorder_beam_cache(cache, src, Lp + i)
@@ -137,18 +137,20 @@ def _beam(params, prefix_embeds, K, entry_length, stop_token_id, temperature,
 
 def beam_search_batched(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
                         beam_size: int = 5, entry_length: int = 67,
-                        stop_token_id: int = 13, temperature: float = 1.0):
+                        stop_token_id: int = 13, temperature: float = 1.0, tp=None):
     """Beam search over a clip batch ``prefix_embeds`` [B, Lp, D]. Returns
     (tokens [B, beam, entry_length] int64, seq_lengths [B, beam] int64,
     scores [B, beam] fp32 length-normalised), each clip's beams in
-    descending score order."""
+    descending score order. Under ``tp`` ``params`` is this rank's shard
+    (``parallel.tp.shard_gpt2_params``); the logits are gathered whole
+    before the scoring."""
     B, Lp, _ = prefix_embeds.shape
     cache = init_kv_cache(cfg, B, Lp + entry_length, prefix_embeds.dtype,
-                          prefix_embeds.device)
+                          prefix_embeds.device, tp)
     return _beam(params, prefix_embeds, beam_size, entry_length, stop_token_id,
                  temperature, cache,
-                 lambda e, c: gpt2_prefill(params, cfg, e, c),
-                 lambda x, c, idx: gpt2_step(params, cfg, x, c, idx))
+                 lambda e, c: gpt2_prefill(params, cfg, e, c, tp=tp),
+                 lambda x, c, idx: gpt2_step(params, cfg, x, c, idx, tp=tp), tp)
 
 
 def beam_search_batched_q8(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,

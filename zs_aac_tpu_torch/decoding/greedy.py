@@ -39,7 +39,7 @@ CHECK_EVERY = 8  # steps between host checks for "every row has stopped"
 
 @torch.no_grad()
 def _greedy(params, prefix_embeds, entry_length, stop_token_id, extra_stop_id,
-            cache, prefill, step):
+            cache, prefill, step, tp=None):
     B, Lp, _ = prefix_embeds.shape
     dev = prefix_embeds.device
     logits, cache = prefill(prefix_embeds, cache)
@@ -53,22 +53,25 @@ def _greedy(params, prefix_embeds, entry_length, stop_token_id, extra_stop_id,
         tokens[:, i] = torch.where(finished, 0, cur)
         lengths += (~finished).long()
         finished = finished | (cur == stop_token_id) | (cur == extra_stop_id)
-        logits, cache = step(gpt2_embed(params, cur), cache, Lp + i)
+        logits, cache = step(gpt2_embed(params, cur, tp), cache, Lp + i)
         cur = logits.argmax(dim=-1)
     return tokens, lengths
 
 
 def greedy_decode(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
                   entry_length: int = 67, stop_token_id: int = 13,
-                  extra_stop_id: int = 764):
-    """Returns (tokens [B, entry_length] int64, lengths [B] int64)."""
+                  extra_stop_id: int = 764, tp=None):
+    """Returns (tokens [B, entry_length] int64, lengths [B] int64). Under
+    ``tp`` (the ``model`` axis of a mesh) ``params`` is this rank's shard
+    (``parallel.tp.shard_gpt2_params``) and every rank of the group decodes
+    the same prefixes to the same tokens."""
     B, Lp, _ = prefix_embeds.shape
     cache = init_kv_cache(cfg, B, Lp + entry_length, prefix_embeds.dtype,
-                          prefix_embeds.device)
+                          prefix_embeds.device, tp)
     return _greedy(
         params, prefix_embeds, entry_length, stop_token_id, extra_stop_id, cache,
-        lambda e, c: gpt2_prefill(params, cfg, e, c),
-        lambda x, c, idx: gpt2_step(params, cfg, x, c, idx))
+        lambda e, c: gpt2_prefill(params, cfg, e, c, tp=tp),
+        lambda x, c, idx: gpt2_step(params, cfg, x, c, idx, tp=tp), tp)
 
 
 def greedy_decode_q8(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
@@ -89,13 +92,14 @@ def greedy_decode_q8(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
 @torch.no_grad()
 def mistral_greedy_decode(params: dict, cfg, prefix_embeds: torch.Tensor, lora=None,
                           max_new_tokens: int = 60, eos_token_id: int = 2, *,
-                          q8_cache: bool = False):
+                          q8_cache: bool = False, tp=None):
     """Batched greedy decode of the Mistral captioner (``cfg`` a
     ``MistralConfig``; ``params`` float or ``quantize_mistral_int8``'s).
     Returns (tokens [B, max_new_tokens] int64, lengths [B] int64): a row's
     tokens up to its EOS, which is not emitted, then 0; ``lengths`` counts
     the steps each row was still running. ``q8_cache`` serves over the int8
-    KV cache."""
+    KV cache. Under ``tp`` (float weights and cache) ``params`` and ``lora``
+    are this rank's shards (``parallel.tp``)."""
     from zs_aac_tpu_torch.models.mistral import (init_mistral_cache, init_mistral_cache_q8,
                                                  mistral_embed, mistral_prefill, mistral_step)
 
@@ -106,8 +110,8 @@ def mistral_greedy_decode(params: dict, cfg, prefix_embeds: torch.Tensor, lora=N
         lora = _cast_matrices(lora, prefix_embeds.dtype)
     T = Lp + max_new_tokens
     cache = (init_mistral_cache_q8(cfg, B, T, dev) if q8_cache
-             else init_mistral_cache(cfg, B, T, prefix_embeds.dtype, dev))
-    logits, cache = mistral_prefill(params, cfg, prefix_embeds, cache, lora=lora)
+             else init_mistral_cache(cfg, B, T, prefix_embeds.dtype, dev, tp))
+    logits, cache = mistral_prefill(params, cfg, prefix_embeds, cache, lora=lora, tp=tp)
     cur = logits[:, -1].argmax(dim=-1)
     tokens = torch.zeros(B, max_new_tokens, dtype=torch.int64, device=dev)
     lengths = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -119,8 +123,8 @@ def mistral_greedy_decode(params: dict, cfg, prefix_embeds: torch.Tensor, lora=N
         lengths += (~finished).long()
         if i == max_new_tokens - 1:
             break     # the last step's logits would choose no token
-        logits, cache = mistral_step(params, cfg, mistral_embed(params, cur), cache, Lp + i,
-                                     lora=lora)
+        logits, cache = mistral_step(params, cfg, mistral_embed(params, cur, tp), cache, Lp + i,
+                                     lora=lora, tp=tp)
         cur = logits.argmax(dim=-1)
         finished = finished | (cur == eos_token_id)
     return tokens, lengths

@@ -36,6 +36,7 @@ from zs_aac_tpu_torch.models.htsat import HTSAT
 from zs_aac_tpu_torch.models.text_towers import (CLIPTextConfig, CLIPTextEncoder,
                                                  GPT2EncoderConfig, GPT2TextEncoder,
                                                  init_clip_text, init_gpt2_encoder)
+from zs_aac_tpu_torch.parallel.mesh import gather_rows
 from zs_aac_tpu_torch.utils.device import resolve_device
 
 __all__ = ["ASEConfig", "ASE", "TEXT_MODEL_REGISTRY", "CLIP_TEXT_REGISTRY", "GPT2_TEXT_REGISTRY",
@@ -177,12 +178,12 @@ class ASE:
             raise ValueError(f"unknown audio encoder {cfg.audio_encoder!r}")
         self.text_enc = build_text_tower(cfg.text_model, cfg.dtype)
 
-    def _audio(self, variables, spec, train: bool, generator):
+    def _audio(self, variables, spec, train: bool, generator, data=None):
         """(L2-normalized audio embeddings, the tower's new batch_stats or None)."""
         p = variables["params"]
         out = self.audio_enc.apply({"params": p["audio_enc"],
                                     "batch_stats": variables["batch_stats"]["audio_enc"]},
-                                   spec, train=train, generator=generator)
+                                   spec, train=train, generator=generator, data=data)
         feats, stats = out if train else (out, None)
         return _l2norm(_proj(feats, p["audio_proj"], self.cfg.dtype)), stats
 
@@ -198,13 +199,18 @@ class ASE:
         return _l2norm(_proj(hidden[:, 0, :], p["text_proj"], self.cfg.dtype))
 
     def __call__(self, variables, spec, input_ids, attention_mask, idx, train: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, data=None):
         """Contrastive loss over a batch -> ``(loss, new_batch_stats)``;
         ``idx`` marks same-audio positives; ``generator`` feeds the audio
-        tower's spec augmentation and drop path in train mode."""
-        audio, stats = self._audio(variables, spec, train, generator)
+        tower's spec augmentation and drop path in train mode. Under
+        ``data`` (a ``parallel.mesh.Axis``) the inputs are this rank's rows
+        and the loss is the global batch's on every rank: the tower's batch
+        statistics and draws are global, and the embeddings and ``idx`` are
+        gathered (``gather_rows``) before the similarity matrices."""
+        audio, stats = self._audio(variables, spec, train, generator, data)
         text = self.encode_text(variables, input_ids, attention_mask, train=train)
         idx = torch.as_tensor(idx, device=audio.device)
+        audio, text, idx = (gather_rows(t, data) for t in (audio, text, idx))
         pos = (idx[:, None] == idx[None, :]).to(audio.dtype)
         targets = pos / pos.sum(dim=1, keepdim=True)
         temp = variables["params"]["temp"]

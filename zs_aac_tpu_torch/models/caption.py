@@ -22,6 +22,7 @@ from torch import nn
 from zs_aac_tpu_torch.models.gpt2 import GPT2Config, gpt2_embed, gpt2_forward, init_gpt2
 from zs_aac_tpu_torch.models.mapper import MLP, init_mapper_, make_mapper
 from zs_aac_tpu_torch.ops.quant import div
+from zs_aac_tpu_torch.parallel.mesh import all_sum
 from zs_aac_tpu_torch.utils.device import resolve_device
 
 __all__ = ["CaptionConfig", "sound_effect_choice", "init_caption_model", "prefix_projections",
@@ -87,19 +88,20 @@ def prefix_projections(params: dict, cfg: CaptionConfig, prefix: torch.Tensor):
 def caption_embeddings(params: dict, cfg: CaptionConfig, prefix: torch.Tensor,
                        hard_prompt_tokens: Optional[torch.Tensor] = None,
                        text_tokens: Optional[torch.Tensor] = None,
-                       label_embeddings: Optional[torch.Tensor] = None):
+                       label_embeddings: Optional[torch.Tensor] = None, tp=None):
     """Assemble GPT input embeddings [sound | hard | soft_prefix | text] from
     ``prefix`` [B, prefix_size], optional token ids [B, S] and, for the
-    sound-effect tokens, the label bank ``label_embeddings`` [N, E]."""
+    sound-effect tokens, the label bank ``label_embeddings`` [N, E]. ``tp``:
+    the ``model`` axis, GPT-2 this rank's shard (``parallel.tp``)."""
     parts = []
     if cfg.sound_effect_num and label_embeddings is not None:
         idx = sound_effect_choice(prefix, label_embeddings, cfg.sound_effect_num)
         parts.append(params["sound_effect"](label_embeddings[idx]))
     if hard_prompt_tokens is not None and not cfg.only_soft_prompt:
-        parts.append(gpt2_embed(params["gpt2"], hard_prompt_tokens))
+        parts.append(gpt2_embed(params["gpt2"], hard_prompt_tokens, tp))
     parts.append(prefix_projections(params, cfg, prefix))
     if text_tokens is not None:
-        parts.append(gpt2_embed(params["gpt2"], text_tokens))
+        parts.append(gpt2_embed(params["gpt2"], text_tokens, tp))
     return torch.cat(parts, dim=1)
 
 
@@ -107,13 +109,13 @@ def caption_train_logits(params: dict, cfg: CaptionConfig, tokens: torch.Tensor,
                          prefix: torch.Tensor, mask: torch.Tensor,
                          hard_prompt_tokens: Optional[torch.Tensor] = None,
                          hard_prompt_mask: Optional[torch.Tensor] = None,
-                         label_embeddings: Optional[torch.Tensor] = None):
+                         label_embeddings: Optional[torch.Tensor] = None, tp=None):
     """Training forward: logits aligned to predict ``tokens`` [B, S]. The
     full mask is [sound ones | hard_prompt_mask | mask] (``mask``: the
     dataset's [B, prefix_length + S]); the slice is ``logits[:, h +
     prefix_length - 1 : -1]``, h the sound and hard tokens."""
     embeds = caption_embeddings(params, cfg, prefix, hard_prompt_tokens, tokens,
-                                label_embeddings)
+                                label_embeddings, tp)
     full_mask = mask
     h = 0
     if hard_prompt_tokens is not None and not cfg.only_soft_prompt:
@@ -124,17 +126,20 @@ def caption_train_logits(params: dict, cfg: CaptionConfig, tokens: torch.Tensor,
                           device=full_mask.device)
         full_mask = torch.cat([ones, full_mask], dim=1)
         h += cfg.sound_effect_num
-    logits = gpt2_forward(params["gpt2"], cfg.gpt2, embeds, full_mask)
+    logits = gpt2_forward(params["gpt2"], cfg.gpt2, embeds, full_mask, tp)
     return logits[:, h + cfg.prefix_length - 1:-1]
 
 
-def caption_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def caption_loss(logits: torch.Tensor, tokens: torch.Tensor, data=None) -> torch.Tensor:
     """Next-token cross-entropy, token id 0 ignored (the reference's
-    ``ignore_index=0``): the mean over the other positions."""
+    ``ignore_index=0``): the mean over the other positions. Under ``data``
+    (``parallel.mesh.Axis``; this rank's rows) this rank's share of the
+    global batch's mean: its rows' sum over the global count, so that the
+    shares sum to the loss."""
     valid = (tokens != 0).to(logits.dtype)
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens.reshape(-1),
                          reduction="none").reshape(tokens.shape)
-    return (ce * valid).sum() / torch.clamp_min(valid.sum(), 1)
+    return (ce * valid).sum() / torch.clamp_min(all_sum(valid.sum(), data), 1)
 
 
 def trainable_filter(cfg: CaptionConfig):

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from zs_aac_tpu_torch.models.mapper import init_mapper_, make_mapper
 from zs_aac_tpu_torch.models.mistral import (MistralConfig, init_lora, init_mistral,
                                              mistral_embed, mistral_forward)
+from zs_aac_tpu_torch.parallel.mesh import all_sum
 from zs_aac_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -61,39 +62,41 @@ def init_mistral_caption(cfg: MistralCaptionConfig, seed: int = 0, device="cuda"
 
 
 def mistral_caption_embeddings(params, cfg: MistralCaptionConfig, prefix,
-                               hard_prompt_tokens=None, text_tokens=None):
-    """[hard prompt | mapper prefix | text] embeddings in the base's dtype."""
+                               hard_prompt_tokens=None, text_tokens=None, tp=None):
+    """[hard prompt | mapper prefix | text] embeddings in the base's dtype
+    (``tp``: the ``model`` axis, with the base and LoRA this rank's shards)."""
     proj = params["mapper"](prefix).reshape(-1, cfg.prefix_length, cfg.mistral.hidden_size)
     proj = proj.to(params["mistral"]["embed"].dtype)
     parts = []
     if hard_prompt_tokens is not None and not cfg.only_soft_prompt:
-        parts.append(mistral_embed(params["mistral"], hard_prompt_tokens))
+        parts.append(mistral_embed(params["mistral"], hard_prompt_tokens, tp))
     parts.append(proj)
     if text_tokens is not None:
-        parts.append(mistral_embed(params["mistral"], text_tokens))
+        parts.append(mistral_embed(params["mistral"], text_tokens, tp))
     return torch.cat(parts, dim=1)
 
 
 def mistral_caption_train_logits(params, cfg: MistralCaptionConfig, tokens, prefix, mask,
-                                 hard_prompt_tokens=None, hard_prompt_mask=None):
+                                 hard_prompt_tokens=None, hard_prompt_mask=None, tp=None):
     """Logits aligned to predict ``tokens[:, islang:]``."""
-    embeds = mistral_caption_embeddings(params, cfg, prefix, hard_prompt_tokens, tokens)
+    embeds = mistral_caption_embeddings(params, cfg, prefix, hard_prompt_tokens, tokens, tp)
     full_mask = mask
     h = 0
     if hard_prompt_tokens is not None and not cfg.only_soft_prompt:
         h = hard_prompt_tokens.shape[1]
         full_mask = torch.cat([hard_prompt_mask, mask], dim=1)
     logits = mistral_forward(params["mistral"], cfg.mistral, embeds, full_mask,
-                             lora=params["lora"])
+                             lora=params["lora"], tp=tp)
     start = h + cfg.prefix_length + cfg.islang - 1
     return logits[:, start:-1]
 
 
-def mistral_caption_loss(logits, tokens, islang: int) -> torch.Tensor:
+def mistral_caption_loss(logits, tokens, islang: int, data=None) -> torch.Tensor:
     """Cross-entropy against ``tokens[:, islang:]`` in fp32, token 0
-    ignored: the mean over the other positions."""
+    ignored: the mean over the other positions (under ``data`` this rank's
+    share of the global mean, as ``models.caption.caption_loss``)."""
     targets = tokens[:, islang:]
     valid = (targets != 0).float()
     ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]), targets.reshape(-1),
                          reduction="none").reshape(targets.shape)
-    return (ce * valid).sum() / torch.clamp_min(valid.sum(), 1)
+    return (ce * valid).sum() / torch.clamp_min(all_sum(valid.sum(), data), 1)

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from zs_aac_tpu_torch.ops.specaug import spec_augment
+from zs_aac_tpu_torch.parallel.mesh import mean_over
 from zs_aac_tpu_torch.utils.device import resolve_device
 
 __all__ = ["batch_norm", "Cnn10", "Cnn14", "ResNet38"]
@@ -50,11 +51,13 @@ __all__ = ["batch_norm", "Cnn10", "Cnn14", "ResNet38"]
 _BN_EPS = 1e-5
 
 
-def batch_norm(x, p, stats, train: bool, axis: int = -1):
+def batch_norm(x, p, stats, train: bool, axis: int = -1, data=None):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
     ``axis`` of ``x``: (the output in fp32, the new running statistics in
     train mode or None). ``p`` holds ``scale``/``bias``, ``stats``
-    ``mean``/``var``."""
+    ``mean``/``var``. Under ``data`` (a ``parallel.mesh.Axis``; ``x`` this
+    rank's rows) E[x] and E[x^2] are means over the ranks, gradient
+    included, so the statistics are the global batch's."""
     axis = axis % x.dim()
     shape = [1] * x.dim()
     shape[axis] = x.shape[axis]
@@ -63,8 +66,8 @@ def batch_norm(x, p, stats, train: bool, axis: int = -1):
     new = None
     if train:
         dims = [d for d in range(x.dim()) if d != axis]
-        mean = xf.mean(dim=dims)
-        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        mean, sq = mean_over(torch.stack([xf.mean(dim=dims), (xf * xf).mean(dim=dims)]), data)
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         with torch.no_grad():
             new = {"mean": 0.9 * stats["mean"] + 0.1 * mean.detach(),
                    "var": 0.9 * stats["var"] + 0.1 * var.detach()}
@@ -97,9 +100,10 @@ class _Run:
     """One forward pass: the variables, the mode, the random draws and the
     new batch statistics it collects (a tree like ``batch_stats``)."""
 
-    def __init__(self, variables, dt, train: bool, dropout_rate: float, generator):
+    def __init__(self, variables, dt, train: bool, dropout_rate: float, generator, data=None):
         self.p, self.st = variables["params"], variables["batch_stats"]
         self.dt, self.train, self.rate, self.g = dt, train, dropout_rate, generator
+        self.data = data
         self.new_stats = {}
 
     def bn(self, x, path, relu=False):
@@ -112,7 +116,7 @@ class _Run:
             y = F.batch_norm(x, st["mean"].float(), st["var"].float(), p["scale"].float(),
                              p["bias"].float(), False, 0.0, _BN_EPS)
             return F.relu(y, inplace=True) if relu else y
-        y, new = batch_norm(x, p, st, True, axis=1)
+        y, new = batch_norm(x, p, st, True, axis=1, data=self.data)
         node = self.new_stats
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -136,19 +140,22 @@ class _Run:
             return x
         keep = 1.0 - self.rate
         B, C, H, W = x.shape
-        u = torch.rand(B, H, W, C, generator=self.g, device=self.g.device).permute(0, 3, 1, 2)
+        n = B * (self.data.size if self.data else 1)    # drawn for the global batch
+        u = torch.rand(n, H, W, C, generator=self.g, device=self.g.device)
+        u = (self.data.local(u) if self.data else u).permute(0, 3, 1, 2)
         return torch.where(u.to(x.device) < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                                         device=x.device))
 
     def stem(self, spec, spec_augmentation: bool):
         """``bn0`` over the mel bins of ``[B, T, F]``, spec augmentation in
         train mode -> ``[B, 1, T, F]`` channels-last in ``dt``."""
-        x, new = batch_norm(spec, self.p["bn0"], self.st["bn0"], self.train, axis=-1)
+        x, new = batch_norm(spec, self.p["bn0"], self.st["bn0"], self.train, axis=-1,
+                            data=self.data)
         if new is not None:
             self.new_stats["bn0"] = new
         x = x.to(self.dt)
         if self.train and spec_augmentation:
-            x = spec_augment(x, self.g)
+            x = spec_augment(x, self.g, data=self.data)
         return x[:, None].contiguous(memory_format=torch.channels_last)
 
     def result(self, x):
@@ -223,11 +230,14 @@ class _CnnBase:
         return ini.variables()
 
     def apply(self, variables, spec, *, train: bool = False,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, data=None):
         """``spec`` [B, T, F] -> features [B, C] (``(features,
-        new_batch_stats)`` with ``train``, its draws from ``generator``)."""
+        new_batch_stats)`` with ``train``, its draws from ``generator``).
+        Under ``data`` (``parallel.mesh.Axis``) ``spec`` is this rank's rows:
+        batch statistics are the global batch's, and the draws are made for
+        the global batch and sliced."""
         _check_generator(self, train, generator)
-        run = _Run(variables, self.dtype, train, self.dropout_rate, generator)
+        run = _Run(variables, self.dtype, train, self.dropout_rate, generator, data)
         x = run.stem(spec, self.spec_augmentation)
         for i in range(len(self.channels)):
             x = run.dropout(run.conv_block(x, f"conv_block{i + 1}"))
@@ -283,10 +293,10 @@ class ResNet38:
         return ini.variables()
 
     def apply(self, variables, spec, *, train: bool = False,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, data=None):
         """``spec`` [B, T, F] -> features [B, 2048] (as ``Cnn14.apply``)."""
         _check_generator(self, train, generator)
-        run = _Run(variables, self.dtype, train, self.dropout_rate, generator)
+        run = _Run(variables, self.dtype, train, self.dropout_rate, generator, data)
         x = run.stem(spec, self.spec_augmentation)
         x = run.dropout(run.conv_block(x, "conv_block1"))
         for name, _, _, stride, ds in _resnet_blocks(self.layers):

@@ -22,6 +22,17 @@ decode step is kernel K1 (``ops/decode_attn.py``).
 Beam search keeps one cache row per logical beam (``expand_beam_cache``,
 ``reorder_beam_cache``) and steps with ``gpt2_step``/``gpt2_step_q8`` at
 B * K rows, where the JAX package's beam steps read an ancestry table.
+
+Tensor parallelism (Megatron's, float path only, as the JAX package's
+``shard_gpt2_params``): ``gpt2_embed``, ``gpt2_forward``, ``init_kv_cache``,
+``gpt2_prefill`` and ``gpt2_step`` take ``tp``, the ``model`` axis of a mesh
+(``parallel.mesh.Axis``), with ``params`` this rank's shard
+(``parallel.tp.shard_gpt2_params``): f (``tp_copy``) before each
+column-parallel product (``c_attn`` by heads, ``c_fc``), g (``tp_reduce``)
+after each row-parallel one (both ``c_proj``) with its bias added after g,
+a vocab-parallel embedding (out-of-shard ids masked, then g), and the
+vocab-parallel logits gathered whole (``tp_gather``) before anything reads
+them. The KV cache holds this rank's heads.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ import torch.nn.functional as F
 
 from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8
 from zs_aac_tpu_torch.ops.quant import div, quant_act, quantize_vec
+from zs_aac_tpu_torch.parallel.mesh import tp_copy, tp_gather, tp_reduce
+from zs_aac_tpu_torch.parallel.tp import embed_lookup
 from zs_aac_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -116,9 +129,26 @@ def _mm(x, p):
     return y + p["b"]
 
 
-def _logits(x, params):
-    """Final logits ``x @ wte.T``; reads the int8 copy when present."""
+def _row(x, p, tp):
+    """A row-parallel product: ``_mm`` in one process; under ``tp`` the
+    partial product summed over the group (g), then the whole bias."""
+    if tp is None:
+        return _mm(x, p)
+    return tp_reduce(x @ p["w"], tp) + p["b"]
+
+
+def _heads(cfg: GPT2Config, tp) -> int:
+    """The attention heads this rank holds."""
+    return cfg.n_head // (tp.size if tp is not None else 1)
+
+
+def _logits(x, params, cfg=None, tp=None):
+    """Final logits ``x @ wte.T``; reads the int8 copy when present. Under
+    ``tp``: this rank's vocabulary rows, gathered whole and cut to
+    ``cfg.vocab_size`` (the shard pads the vocabulary to the group)."""
     V = params["wte"].shape[0]
+    if tp is not None:
+        return tp_gather(tp_copy(x, tp) @ params["wte"].t(), tp)[..., :cfg.vocab_size]
     if "wte_q" in params:
         q = params["wte_q"]
         if "scale_a8" in q:
@@ -139,29 +169,32 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, L, H * d)
 
 
-def _attn_block(p, cfg, x, *, bias):
+def _attn_block(p, cfg, x, *, bias, tp=None):
     C = cfg.n_embd
-    q, k, v = _mm(x, p["c_attn"]).split(C, dim=-1)
-    q, k, v = (_split_heads(t, cfg.n_head) for t in (q, k, v))
+    H = _heads(cfg, tp)
+    q, k, v = _mm(tp_copy(x, tp), p["c_attn"]).split(H * (C // cfg.n_head), dim=-1)
+    q, k, v = (_split_heads(t, H) for t in (q, k, v))
     att = div(q @ k.transpose(-1, -2), math.sqrt(C // cfg.n_head))
     att = torch.softmax((att + bias).float(), dim=-1).to(x.dtype)
-    out = _mm(_merge_heads(att @ v), p["c_proj"])
+    out = _row(_merge_heads(att @ v), p["c_proj"], tp)
     return out, (k, v)
 
 
-def _mlp_residual(blk, cfg, x):
-    h = _gelu_new(_mm(_ln(x, blk["ln_2"], cfg.layer_norm_epsilon), blk["mlp"]["c_fc"]))
-    return x + _mm(h, blk["mlp"]["c_proj"])
+def _mlp_residual(blk, cfg, x, tp=None):
+    h = _gelu_new(_mm(tp_copy(_ln(x, blk["ln_2"], cfg.layer_norm_epsilon), tp),
+                      blk["mlp"]["c_fc"]))
+    return x + _row(h, blk["mlp"]["c_proj"], tp)
 
 
-def _block(p, cfg, x, *, bias):
-    a, kv = _attn_block(p["attn"], cfg, _ln(x, p["ln_1"], cfg.layer_norm_epsilon), bias=bias)
-    return _mlp_residual(p, cfg, x + a), kv
+def _block(p, cfg, x, *, bias, tp=None):
+    a, kv = _attn_block(p["attn"], cfg, _ln(x, p["ln_1"], cfg.layer_norm_epsilon), bias=bias,
+                        tp=tp)
+    return _mlp_residual(p, cfg, x + a, tp), kv
 
 
-def gpt2_embed(params, tokens):
-    """Token ids -> wte embeddings."""
-    return params["wte"][tokens]
+def gpt2_embed(params, tokens, tp=None):
+    """Token ids -> wte embeddings (vocabulary-parallel under ``tp``)."""
+    return embed_lookup(params["wte"], tokens, tp)
 
 
 def _causal_bias(L, dtype, device):
@@ -170,9 +203,10 @@ def _causal_bias(L, dtype, device):
 
 
 def gpt2_forward(params, cfg: GPT2Config, inputs_embeds,
-                 attention_mask: Optional[torch.Tensor] = None):
+                 attention_mask: Optional[torch.Tensor] = None, tp=None):
     """Full-sequence forward -> logits [B, L, vocab]; ``attention_mask``
-    [B, L] is 1 where a position is kept."""
+    [B, L] is 1 where a position is kept; ``tp`` as in the module
+    docstring."""
     B, L, D = inputs_embeds.shape
     dev = inputs_embeds.device
     x = inputs_embeds + params["wpe"][:L][None]
@@ -181,9 +215,9 @@ def gpt2_forward(params, cfg: GPT2Config, inputs_embeds,
         bias = bias + torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9)
     bias = bias.to(x.dtype)
     for blk in params["h"]:
-        x, _ = _block(blk, cfg, x, bias=bias)
+        x, _ = _block(blk, cfg, x, bias=bias, tp=tp)
     x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
-    return _logits(x, params)
+    return _logits(x, params, cfg, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -192,16 +226,17 @@ def gpt2_forward(params, cfg: GPT2Config, inputs_embeds,
 
 
 def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
-                  dtype=torch.float32, device="cuda"):
-    """Preallocated cache: k/v stacked over layers, [n_layer, B, H, T, d]."""
+                  dtype=torch.float32, device="cuda", tp=None):
+    """Preallocated cache: k/v stacked over layers, [n_layer, B, H, T, d]
+    (H this rank's heads under ``tp``)."""
     d = cfg.n_embd // cfg.n_head
-    shape = (cfg.n_layer, batch, cfg.n_head, max_len, d)
+    shape = (cfg.n_layer, batch, _heads(cfg, tp), max_len, d)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def gpt2_prefill(params, cfg: GPT2Config, inputs_embeds, cache, return_hidden=False):
+def gpt2_prefill(params, cfg: GPT2Config, inputs_embeds, cache, return_hidden=False, tp=None):
     """Run the prompt, filling ``cache[:, :, :, :L]`` (rows past L are
     zeroed) in place. Returns (logits [B, L, vocab], cache), plus the
     post-``ln_f`` hidden states [B, L, D] when ``return_hidden`` (MAGIC's
@@ -210,17 +245,18 @@ def gpt2_prefill(params, cfg: GPT2Config, inputs_embeds, cache, return_hidden=Fa
     x = inputs_embeds + params["wpe"][:L][None]
     bias = _causal_bias(L, x.dtype, x.device)
     for i, blk in enumerate(params["h"]):
-        x, (k, v) = _block(blk, cfg, x, bias=bias)
+        x, (k, v) = _block(blk, cfg, x, bias=bias, tp=tp)
         for name, t in (("k", k), ("v", v)):
             cache[name][i, :, :, :L] = t
             cache[name][i, :, :, L:] = 0
     x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
     if return_hidden:
-        return _logits(x, params), cache, x
-    return _logits(x, params), cache
+        return _logits(x, params, cfg, tp), cache, x
+    return _logits(x, params, cfg, tp), cache
 
 
-def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int, return_hidden=False):
+def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int, return_hidden=False,
+              tp=None):
     """One cached decode step for the token at position ``index``.
 
     ``x_embed``: [B, D]. Writes the token's k/v into the cache in place and
@@ -228,21 +264,22 @@ def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int, return_hidden
     state [B, D] when ``return_hidden``."""
     x = (x_embed + params["wpe"][index])[:, None]
     d = cfg.n_embd // cfg.n_head
+    H = _heads(cfg, tp)
     n = index + 1
     for i, blk in enumerate(params["h"]):
         h = _ln(x, blk["ln_1"], cfg.layer_norm_epsilon)
-        q, k, v = _mm(h, blk["attn"]["c_attn"]).split(cfg.n_embd, dim=-1)
-        q, k, v = (_split_heads(t, cfg.n_head) for t in (q, k, v))  # [B,H,1,d]
+        q, k, v = _mm(tp_copy(h, tp), blk["attn"]["c_attn"]).split(H * d, dim=-1)
+        q, k, v = (_split_heads(t, H) for t in (q, k, v))  # [B,H,1,d]
         ck, cv = cache["k"][i], cache["v"][i]
         ck[:, :, index] = k[:, :, 0]
         cv[:, :, index] = v[:, :, 0]
         att = div(q @ ck[:, :, :n].to(x.dtype).transpose(-1, -2), math.sqrt(d))
         att = torch.softmax(att.float(), dim=-1).to(x.dtype)
         o = att @ cv[:, :, :n].to(x.dtype)
-        x = x + _mm(_merge_heads(o), blk["attn"]["c_proj"])
-        x = _mlp_residual(blk, cfg, x)
+        x = x + _row(_merge_heads(o), blk["attn"]["c_proj"], tp)
+        x = _mlp_residual(blk, cfg, x, tp)
     x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
-    logits = _logits(x, params)[:, 0].float()
+    logits = _logits(x, params, cfg, tp)[:, 0].float()
     if return_hidden:
         return logits, cache, x[:, 0]
     return logits, cache

@@ -304,15 +304,18 @@ class HTSAT:
         x = x.transpose(1, 2).reshape(B, target_F, fr, target_T // fr)
         return x.transpose(1, 2).reshape(B, fr * target_F, target_T // fr)
 
-    def _bn0(self, bn, stats, spec, train: bool):
+    def _bn0(self, bn, stats, spec, train: bool, data=None):
         """``bn0`` over the mel bins (``models.cnns.batch_norm``, flax's):
-        running statistics in eval; in train the batch's and the updated
-        running statistics."""
-        y, new = batch_norm(spec, bn, stats, train, axis=-1)
+        running statistics in eval; in train the batch's (the global
+        batch's under ``data``) and the updated running statistics."""
+        y, new = batch_norm(spec, bn, stats, train, axis=-1, data=data)
         return y.to(self.dtype), ({"bn0": new} if train else None)
 
-    def _keep_scales(self, generator, B: int, device):
-        """Per block: (m1, m2) drop-path keep scales [B] fp32, or None at rate 0."""
+    def _keep_scales(self, generator, B: int, device, data=None):
+        """Per block: (m1, m2) drop-path keep scales [B] fp32, or None at rate
+        0; under ``data`` drawn for the global batch, this rank's rows kept."""
+        n = B * (data.size if data else 1)
+        local = data.local if data else (lambda v: v)
         rates = np.linspace(0, self.drop_path_rate, sum(self.depths))
         out = []
         for rate in rates:
@@ -321,21 +324,25 @@ class HTSAT:
                 continue
             keep = 1.0 - float(rate)
             draw = lambda: drop_path_scale(
-                torch.rand(B, generator=generator, device=generator.device), keep).to(device)
+                local(torch.rand(n, generator=generator, device=generator.device)),
+                keep).to(device)
             m1 = draw()
             out.append((m1, draw()))
         return out
 
     def apply(self, variables, spec, *, train: bool = False, return_dict: bool = False,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, data=None):
         """``spec`` [B, T, F] log-mel -> the embedding [B, C_out] (or the dict
         of ``embedding``, ``fine_grained_embedding``, ``framewise_output``,
         ``clipwise_output`` with ``return_dict``). With ``train`` it returns
         ``(that, new_batch_stats)`` and takes its random draws (spec
-        augmentation, drop path) from ``generator``."""
+        augmentation, drop path) from ``generator``. Under ``data``
+        (``parallel.mesh.Axis``) ``spec`` is this rank's rows: ``bn0``'s
+        statistics are the global batch's and the draws are made for the
+        global batch and sliced."""
         p, st = variables["params"], variables["batch_stats"]
         dt = self.dtype
-        x, new_stats = self._bn0(p["bn0"], st["bn0"], spec, train)
+        x, new_stats = self._bn0(p["bn0"], st["bn0"], spec, train, data)
         keeps = [None] * sum(self.depths)
         if train:
             needs_draws = self.spec_augmentation or self.drop_path_rate > 0
@@ -343,9 +350,9 @@ class HTSAT:
                 raise ValueError("HTSAT train mode with spec augmentation or drop path "
                                  "needs a torch.Generator")
             if self.spec_augmentation:
-                x = spec_augment(x, generator)
+                x = spec_augment(x, generator, data=data)
             if self.drop_path_rate > 0:
-                keeps = self._keep_scales(generator, x.shape[0], x.device)
+                keeps = self._keep_scales(generator, x.shape[0], x.device, data)
         x = self._reshape_wav2img(x)                               # [B, S, S] fp32
         B, S, _ = x.shape
         ps, stride = self.patch_size, self.patch_stride

@@ -36,6 +36,16 @@ the softmax in fp32; the float step's scores are cast to fp32 before the
 ``/ sqrt(d)``; the int8 step's two products accumulate and stay in fp32.
 Every division by a constant is by a tensor (``ops/quant.py``). No Pallas
 kernel is on this path: the matmuls are cuBLAS's (and ``torch._int_mm``).
+
+Tensor parallelism (Megatron's, float weights and the float cache):
+``mistral_embed``, ``mistral_forward``, ``init_mistral_cache``,
+``mistral_prefill`` and ``mistral_step`` take ``tp``, the ``model`` axis of a
+mesh, with ``params`` and ``lora`` this rank's shards
+(``parallel.tp.shard_mistral_params``, ``shard_mistral_lora``): f before
+the column-parallel sites (q/k/v by heads, gate/up, lm_head by vocabulary),
+g after the row-parallel ones (wo, down) with each LoRA delta in the
+partial sum, the vocabulary-parallel embedding, and the logits gathered
+whole. The fused ``wqkv``/``gateup`` leaves raise under ``tp``.
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ import torch.nn.functional as F
 
 from zs_aac_tpu_torch.models.gpt2 import _int8_dot
 from zs_aac_tpu_torch.ops.quant import div, quantize_vec
+from zs_aac_tpu_torch.parallel.mesh import tp_copy, tp_gather, tp_reduce
+from zs_aac_tpu_torch.parallel.tp import embed_lookup
 from zs_aac_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -127,29 +139,51 @@ def _base_matmul(x, w):
     return x @ w
 
 
-def _lora_delta(x, lora: Dict, scale):
-    delta = (x @ lora["a"].to(x.dtype)) @ lora["b"].to(x.dtype)
-    return delta * scale
+def _lora_delta(x, lora: Dict, scale, tp=None, row=False):
+    """``(x @ a) @ b * scale``. Under ``tp`` the factor that stays whole (a
+    at a column-parallel site, b at a row-parallel one) passes through f, so
+    its gradient sums the group's partial ones."""
+    a, b = lora["a"].to(x.dtype), lora["b"].to(x.dtype)
+    if row:
+        b = tp_copy(b, tp)
+    else:
+        a = tp_copy(a, tp)
+    return ((x @ a) @ b) * scale
 
 
-def _lora_matmul(x, w, lora: Optional[Dict], scale):
+def _lora_matmul(x, w, lora: Optional[Dict], scale, tp=None, row=False):
     """``x @ w`` plus the low-rank path ``(x @ a) @ b * scale``; LoRA
-    parameters are kept fp32 and cast to the activation dtype at use."""
+    parameters are kept fp32 and cast to the activation dtype at use. Under
+    ``tp`` a row-parallel site (``row``) sums base and delta over the group
+    (g); a column-parallel site's ``x`` has passed f."""
     out = _base_matmul(x, w)
     if lora is not None:
-        out = out + _lora_delta(x, lora, scale)
-    return out
+        out = out + _lora_delta(x, lora, scale, tp, row)
+    return tp_reduce(out, tp) if row else out
+
+
+def _local(n: int, tp) -> int:
+    """This rank's share of ``n`` heads under ``tp``."""
+    return n // (tp.size if tp is not None else 1)
+
+
+def _fused(layer: Dict, name: str, tp) -> bool:
+    """Whether ``layer`` holds the fused serving leaf ``name``; it refuses ``tp``."""
+    if tp is not None and name in layer:
+        raise ValueError(f"the fused {name!r} serving leaf is not tensor-parallel; "
+                         "shard the unfused weights (parallel.tp.shard_mistral_params)")
+    return name in layer
 
 
 def _site(lora, name):
     return lora.get(name) if lora else None
 
 
-def _qkv_matmul(a, cfg: MistralConfig, x, lora: Optional[Dict], scale):
+def _qkv_matmul(a, cfg: MistralConfig, x, lora: Optional[Dict], scale, tp=None):
     """q/k/v projections -> (q, k, v). Reads the fused ``wqkv`` leaf when
     present (one GEMM and one activation quantization instead of three),
     with the LoRA deltas per site on the slices."""
-    if "wqkv" in a:
+    if _fused(a, "wqkv", tp):
         D = cfg.hidden_size
         kvd = cfg.n_kv_heads * cfg.head_dim
         qkv = _base_matmul(x, a["wqkv"])
@@ -162,11 +196,12 @@ def _qkv_matmul(a, cfg: MistralConfig, x, lora: Optional[Dict], scale):
             if "wv" in lora:
                 v = v + _lora_delta(x, lora["wv"], scale)
         return q, k, v
-    return tuple(_lora_matmul(x, a[n], _site(lora, n), scale) for n in ("wq", "wk", "wv"))
+    x = tp_copy(x, tp)
+    return tuple(_lora_matmul(x, a[n], _site(lora, n), scale, tp) for n in ("wq", "wk", "wv"))
 
 
-def _mlp(p, x, lora, scale):
-    if "gateup" in p:   # fused serving layout (quantize_mistral_int8)
+def _mlp(p, x, lora, scale, tp=None):
+    if _fused(p, "gateup", tp):   # fused serving layout (quantize_mistral_int8)
         I = p["gateup"]["w"].shape[1] // 2
         gu = _base_matmul(x, p["gateup"])
         g, u = gu[..., :I], gu[..., I:]
@@ -176,16 +211,24 @@ def _mlp(p, x, lora, scale):
             if "up" in lora:
                 u = u + _lora_delta(x, lora["up"], scale)
     else:
-        g = _lora_matmul(x, p["gate"], _site(lora, "gate"), scale)
-        u = _lora_matmul(x, p["up"], _site(lora, "up"), scale)
-    return _lora_matmul(F.silu(g) * u, p["down"], _site(lora, "down"), scale)
+        x = tp_copy(x, tp)
+        g = _lora_matmul(x, p["gate"], _site(lora, "gate"), scale, tp)
+        u = _lora_matmul(x, p["up"], _site(lora, "up"), scale, tp)
+    return _lora_matmul(F.silu(g) * u, p["down"], _site(lora, "down"), scale, tp, row=True)
 
 
-def _head(params, cfg: MistralConfig, x, lora, scale):
-    """Final RMSNorm and the (LoRA'd) lm_head -> logits [..., vocab]."""
+def _head(params, cfg: MistralConfig, x, lora, scale, tp=None):
+    """Final RMSNorm and the (LoRA'd) lm_head -> logits [..., vocab]; under
+    ``tp`` this rank's vocabulary columns, gathered whole."""
     x = _rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    out = _base_matmul(x, params["lm_head"])[..., :cfg.vocab_size]
     head = _site(lora, "lm_head")
+    if tp is not None:
+        x = tp_copy(x, tp)
+        out = x @ params["lm_head"]
+        if head is not None:
+            out = out + _lora_delta(x, head, scale, tp)
+        return tp_gather(out, tp)[..., :cfg.vocab_size]
+    out = _base_matmul(x, params["lm_head"])[..., :cfg.vocab_size]
     if head is not None:
         out = out + _lora_delta(x, head, scale)
     return out
@@ -245,12 +288,12 @@ def quantize_mistral_int8(params: dict, mode: str = "w8", fuse: bool = False) ->
             "lm_head": head}
 
 
-def _attention(p, cfg: MistralConfig, x, *, bias, tables, lora, scale):
+def _attention(p, cfg: MistralConfig, x, *, bias, tables, lora, scale, tp=None):
     """Full-sequence (forward/prefill) attention -> (out, (k, v)), k/v
-    [B, KV, L, d] after RoPE."""
+    [B, KV, L, d] after RoPE (this rank's heads under ``tp``)."""
     B, L, _ = x.shape
-    H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = _qkv_matmul(p, cfg, x, lora, scale)
+    H, KV, d = _local(cfg.n_heads, tp), _local(cfg.n_kv_heads, tp), cfg.head_dim
+    q, k, v = _qkv_matmul(p, cfg, x, lora, scale, tp)
     q = _rope(q.reshape(B, L, H, d).transpose(1, 2), tables)
     k = _rope(k.reshape(B, L, KV, d).transpose(1, 2), tables)
     v = v.reshape(B, L, KV, d).transpose(1, 2)
@@ -260,7 +303,7 @@ def _attention(p, cfg: MistralConfig, x, *, bias, tables, lora, scale):
     att = div(q @ kr.transpose(-1, -2), math.sqrt(d))
     att = torch.softmax((att + bias).float(), dim=-1).to(x.dtype)
     o = (att @ vr).transpose(1, 2).reshape(B, L, H * d)
-    return _lora_matmul(o, p["wo"], _site(lora, "wo"), scale), (k, v)
+    return _lora_matmul(o, p["wo"], _site(lora, "wo"), scale, tp, row=True), (k, v)
 
 
 def _causal_bias(L, offset, window, dtype, device):
@@ -270,8 +313,8 @@ def _causal_bias(L, offset, window, dtype, device):
     return torch.where(ok, 0.0, -1e9).to(dtype)[None, None]
 
 
-def mistral_embed(params, tokens):
-    return params["embed"][tokens]
+def mistral_embed(params, tokens, tp=None):
+    return embed_lookup(params["embed"], tokens, tp)
 
 
 def _lora_layer(lora, i):
@@ -284,7 +327,7 @@ def _lora_scale(lora, dtype):
     return None if lora is None else (lora["alpha"] / lora["r"]).to(dtype)
 
 
-def _decoder(params, cfg, x, bias, lora, scale, on_kv=None):
+def _decoder(params, cfg, x, bias, lora, scale, on_kv=None, tp=None):
     """The decoder stack over a full sequence -> final hidden states;
     ``on_kv(i, k, v)`` receives each layer's K/V ([B, KV, L, d], after
     RoPE)."""
@@ -295,34 +338,36 @@ def _decoder(params, cfg, x, bias, lora, scale, on_kv=None):
         ll = _lora_layer(lora, i)
         h = _rms_norm(x, p["ln1"], cfg.rms_norm_eps)
         a, (k, v) = _attention(p["attn"], cfg, h, bias=bias, tables=tables, lora=ll,
-                               scale=scale)
+                               scale=scale, tp=tp)
         if on_kv is not None:
             on_kv(i, k, v)
         x = x + a
         h = _rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-        x = x + _mlp(p["mlp"], h, ll, scale)
+        x = x + _mlp(p["mlp"], h, ll, scale, tp)
     return x
 
 
 def mistral_forward(params, cfg: MistralConfig, inputs_embeds, attention_mask=None,
-                    lora=None):
+                    lora=None, tp=None):
     """Full-sequence forward -> logits [B, L, vocab]; ``attention_mask``
-    [B, L] is 1 where a position is kept."""
+    [B, L] is 1 where a position is kept; ``tp`` as in the module
+    docstring."""
     B, L, _ = inputs_embeds.shape
     x = inputs_embeds
     bias = _causal_bias(L, 0, cfg.sliding_window, x.dtype, x.device)
     if attention_mask is not None:
         bias = bias + torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9).to(x.dtype)
     scale = _lora_scale(lora, x.dtype)
-    x = _decoder(params, cfg, x, bias, lora, scale)
-    return _head(params, cfg, x, lora, scale)
+    x = _decoder(params, cfg, x, bias, lora, scale, tp=tp)
+    return _head(params, cfg, x, lora, scale, tp)
 
 
 def init_mistral_cache(cfg: MistralConfig, batch: int, max_len: int,
-                       dtype=torch.bfloat16, device="cuda"):
-    """Float cache: k/v stacked over layers, [n_layers, B, KV, T, d]."""
+                       dtype=torch.bfloat16, device="cuda", tp=None):
+    """Float cache: k/v stacked over layers, [n_layers, B, KV, T, d] (KV
+    this rank's kv heads under ``tp``)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    shape = (cfg.n_layers, batch, _local(cfg.n_kv_heads, tp), max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -340,7 +385,7 @@ def init_mistral_cache_q8(cfg: MistralConfig, batch: int, max_len: int, device="
         for _ in range(cfg.n_layers))
 
 
-def mistral_prefill(params, cfg: MistralConfig, inputs_embeds, cache, lora=None):
+def mistral_prefill(params, cfg: MistralConfig, inputs_embeds, cache, lora=None, tp=None):
     """Run the prompt, writing its K/V into rows ``0..L-1`` of the cache in
     place (quantized per vector for the int8 cache). Returns (logits
     [B, L, vocab], cache)."""
@@ -348,7 +393,7 @@ def mistral_prefill(params, cfg: MistralConfig, inputs_embeds, cache, lora=None)
     x = inputs_embeds
     bias = _causal_bias(L, 0, cfg.sliding_window, x.dtype, x.device)
     scale = _lora_scale(lora, x.dtype)
-    q8 = isinstance(cache, tuple)
+    q8 = _q8_cache(cache, tp)
     bg, d = B * cfg.n_kv_heads, cfg.head_dim
 
     def on_kv(i, k, v):
@@ -364,29 +409,36 @@ def mistral_prefill(params, cfg: MistralConfig, inputs_embeds, cache, lora=None)
             cache["k"][i, :, :, :L] = k
             cache["v"][i, :, :, :L] = v
 
-    x = _decoder(params, cfg, x, bias, lora, scale, on_kv)
-    return _head(params, cfg, x, lora, scale), cache
+    x = _decoder(params, cfg, x, bias, lora, scale, on_kv, tp)
+    return _head(params, cfg, x, lora, scale, tp), cache
 
 
-def mistral_step(params, cfg: MistralConfig, x_embed, cache, index: int, lora=None):
+def _q8_cache(cache, tp) -> bool:
+    q8 = isinstance(cache, tuple)
+    if q8 and tp is not None:
+        raise ValueError("the int8 KV cache is not tensor-parallel; use the float cache")
+    return q8
+
+
+def mistral_step(params, cfg: MistralConfig, x_embed, cache, index: int, lora=None, tp=None):
     """One cached decode step for the token at position ``index``.
     ``x_embed``: [B, D]. Writes its K/V into row ``index`` of the cache in
     place; GQA is grouped (each kv head serves its ``H / KV`` query heads
     without a copy of the cache). Returns (logits [B, vocab], cache)."""
     B, D = x_embed.shape
-    H, KV, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, KV, d = _local(cfg.n_heads, tp), _local(cfg.n_kv_heads, tp), cfg.head_dim
     rep, bg = H // KV, B * KV
     lo, hi = max(0, index - cfg.sliding_window + 1), index + 1
     x = x_embed[:, None]
     tables = _rope_tables(d, torch.full((1,), index, device=x.device), cfg.rope_theta, x.dtype)
     scale = _lora_scale(lora, x.dtype)
     sqrt_d = math.sqrt(d)
-    q8 = isinstance(cache, tuple)
+    q8 = _q8_cache(cache, tp)
     for i, p in enumerate(params["layers"]):
         ll = _lora_layer(lora, i)
         a = p["attn"]
         h = _rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-        q, k, v = _qkv_matmul(a, cfg, h, ll, scale)
+        q, k, v = _qkv_matmul(a, cfg, h, ll, scale, tp)
         q = _rope(q.reshape(B, 1, H, d).transpose(1, 2), tables)     # [B, H, 1, d]
         k = _rope(k.reshape(B, 1, KV, d).transpose(1, 2), tables)    # [B, KV, 1, d]
         if q8:
@@ -414,10 +466,10 @@ def mistral_step(params, cfg: MistralConfig, x_embed, cache, index: int, lora=No
             att = qg @ ck[:, :, lo:hi].to(x.dtype).transpose(-1, -2)        # [B, KV, rep, n]
             att = torch.softmax(div(att.float(), sqrt_d), dim=-1).to(x.dtype)
             o = (att @ cv[:, :, lo:hi].to(x.dtype)).reshape(B, 1, H * d)
-        x = x + _lora_matmul(o, a["wo"], _site(ll, "wo"), scale)
+        x = x + _lora_matmul(o, a["wo"], _site(ll, "wo"), scale, tp, row=True)
         h = _rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-        x = x + _mlp(p["mlp"], h, ll, scale)
-    return _head(params, cfg, x, lora, scale)[:, 0], cache
+        x = x + _mlp(p["mlp"], h, ll, scale, tp)
+    return _head(params, cfg, x, lora, scale, tp)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

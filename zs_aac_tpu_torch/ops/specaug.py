@@ -37,15 +37,20 @@ def _draw(generator, b: int, size: int, drop_width: int, n_stripes: int):
 
 def spec_augment(x, generator: torch.Generator, *, time_drop_width: int = 64,
                  time_stripes_num: int = 2, freq_drop_width: int = 8,
-                 freq_stripes_num: int = 2):
+                 freq_stripes_num: int = 2, data=None):
     """Apply SpecAugment to a spectrogram batch ``[B, 1, T, F]`` (or ``[B, T,
-    F]``); returns a tensor of the same shape and dtype."""
+    F]``); returns a tensor of the same shape and dtype. Under ``data`` (a
+    ``parallel.mesh.Axis``; ``x`` this rank's rows) the stripes are drawn
+    for the global batch and this rank keeps its rows' draws, so any world
+    size masks each row as one process does."""
     squeeze = x.dim() == 3
     if squeeze:
         x = x[:, None]
     b, _, t, f = x.shape
-    tw, ts = _draw(generator, b, t, time_drop_width, time_stripes_num)
-    fw, fs = _draw(generator, b, f, freq_drop_width, freq_stripes_num)
+    n = b * (data.size if data else 1)
+    local = data.local if data else (lambda v: v)
+    tw, ts = map(local, _draw(generator, n, t, time_drop_width, time_stripes_num))
+    fw, fs = map(local, _draw(generator, n, f, freq_drop_width, freq_stripes_num))
     tmask = stripe_mask(tw, ts, t).to(x.device)
     fmask = stripe_mask(fw, fs, f).to(x.device)
     out = x * tmask[:, None, :, None].to(x.dtype) * fmask[:, None, None, :].to(x.dtype)

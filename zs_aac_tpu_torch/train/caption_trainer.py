@@ -13,6 +13,12 @@ updated in place (``p + u``, the optax ``apply_updates`` arithmetic); the
 optimizer sees them through ``tensor_tree``, which shares their storage. The
 step's noise comes from a ``torch.Generator`` seeded with ``fold_in(seed,
 step)``, as the JAX step folds the step count into its key.
+
+Under a ``mesh`` (``parallel.mesh``, dims ``data`` x ``model``) the step is
+the JAX package's dp x tp captioner step: GPT-2 is this rank's Megatron
+shard (``parallel.tp.shard_gpt2_params``), the mapper is replicated, each
+rank takes its ``data`` rows, and the step computes the one-process step
+of the global batch (``make_caption_train_step``'s docstring).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from torch import nn
 
 from zs_aac_tpu_torch.models.caption import (CaptionConfig, caption_loss, caption_train_logits,
                                              init_caption_model, trainable_filter)
+from zs_aac_tpu_torch.parallel.mesh import all_reduce_grads, all_sum, mesh_axis, tensor_axis
 from zs_aac_tpu_torch.train.contrastive import fold_in
 from zs_aac_tpu_torch.train.optim import (get_optimizer, multi_transform, set_to_zero,
                                           tree_leaves)
@@ -73,13 +80,23 @@ def create_caption_state(seed: int, cfg: CaptionConfig, optimizer,
 
 def make_caption_train_step(cfg: CaptionConfig, optimizer, noise_variance: float = 0.016,
                             uniform_noise: bool = False, dont_norm: bool = False,
-                            device="cuda"):
+                            device="cuda", mesh=None):
     """``train_step(state, batch, seed) -> (state, loss)``. ``batch``:
     {"tokens": [B, S], "mask": [B, P + S], "prefix": [B, E], optional
     "hard_prompt": [B, H] and "hard_mask": [B, H]} (numpy or tensors; moved
-    to ``device``). The parameters are updated in place."""
+    to ``device``). The parameters are updated in place.
+
+    Under ``mesh`` ``batch`` is this rank's ``data`` rows
+    (``parallel.mesh.shard_batch``), every rank passes the same ``seed``,
+    and ``state.params["gpt2"]`` is this rank's shard over ``model`` (the
+    whole GPT-2 where ``model`` has one rank: ``tensor_axis``). The
+    noise is drawn for the global batch, each rank differentiates its share
+    of the global loss (``caption_loss``), and the gradients are summed over
+    ``data``: each rank holds the one-process gradients of its own shard
+    and of the replicated leaves. The loss returned is the global batch's."""
     dev = resolve_device(device)
     frozen = {"gpt2"} if cfg.only_prefix else set()
+    data, tp = mesh_axis(mesh, "data"), tensor_axis(mesh)
 
     def train_step(state: CaptionTrainState, batch, seed: int):
         g = torch.Generator(device=dev).manual_seed(fold_in(seed, state.step))
@@ -93,12 +110,13 @@ def make_caption_train_step(cfg: CaptionConfig, optimizer, noise_variance: float
                     p.requires_grad_(k not in frozen)
             tokens = take("tokens")
             prefix = noise_injection(take("prefix").float(), noise_variance, uniform_noise,
-                                     dont_norm, generator=g)
+                                     dont_norm, generator=g, data=data)
             logits = caption_train_logits(state.params, cfg, tokens, prefix, take("mask"),
-                                          take("hard_prompt"), take("hard_mask"))
-            loss = caption_loss(logits, tokens)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(torch.zeros_like(p) if gr is None else gr for p, gr in zip(leaves, grads))
+                                          take("hard_prompt"), take("hard_mask"), tp=tp)
+            share = caption_loss(logits, tokens, data)
+            grads = torch.autograd.grad(share, leaves, allow_unused=True)
+        it = iter(all_reduce_grads([torch.zeros_like(p) if gr is None else gr
+                                    for p, gr in zip(leaves, grads)], data))
         # a frozen group's "gradients" are its parameters: set_to_zero reads
         # only their shapes
         grad_tree = {k: _like(v, it) if k not in frozen else v for k, v in tree.items()}
@@ -107,7 +125,8 @@ def make_caption_train_step(cfg: CaptionConfig, optimizer, noise_variance: float
             for k in trained:
                 for p, u in zip(tree_leaves(tree[k]), tree_leaves(updates[k])):
                     p.add_(u)
-        return CaptionTrainState(state.params, opt_state, state.step + 1), loss.detach()
+        loss = all_sum(share.detach(), data)
+        return CaptionTrainState(state.params, opt_state, state.step + 1), loss
 
     return train_step
 

@@ -12,7 +12,9 @@ The counterpart of the JAX package's ``train/contrastive.py``:
   dispatches them), the optimizer update and the new ``batch_stats``. The
   step's random draws (spec augmentation, drop path) come from a
   ``torch.Generator`` seeded with ``fold_in(seed, step)``, as the JAX step
-  folds the step count into its key;
+  folds the step count into its key. Under a ``mesh`` (``parallel.mesh``)
+  the step is data-parallel and still computes the one-process step of the
+  global batch (``make_ase_train_step``'s docstring);
 - ``make_encode_fns``: eval-mode encoders (audio through K2 and
   ``ASE.encode_audio``, text through ``ASE.encode_text``).
 """
@@ -27,6 +29,7 @@ import torch
 from zs_aac_tpu_torch.models.ase import ASE, init_ase
 from zs_aac_tpu_torch.models.convert import tree_map
 from zs_aac_tpu_torch.ops.logmel import LogMelConfig, log_mel
+from zs_aac_tpu_torch.parallel.mesh import all_reduce_grads, mesh_axis
 from zs_aac_tpu_torch.train.optim import apply_updates, tree_leaves
 from zs_aac_tpu_torch.utils.device import resolve_device
 
@@ -66,12 +69,22 @@ def _unflatten(tree, leaves):
 
 
 def make_ase_train_step(ase: ASE, optimizer, mel_cfg: Optional[LogMelConfig] = None,
-                        device="cuda"):
+                        device="cuda", mesh=None):
     """``train_step(state, batch, seed) -> (new_state, loss)``. ``batch``:
     {"wave": [B, T] float32, "input_ids": [B, L], "attention_mask": [B, L],
-    "idx": [B]} (numpy or tensors; moved to ``device``)."""
+    "idx": [B]} (numpy or tensors; moved to ``device``).
+
+    Under ``mesh`` (its ``data`` dim) ``batch`` is this rank's rows of the
+    global batch (``parallel.mesh.shard_batch``) and every rank passes the
+    same state and ``seed``. The step is then the one-process step of the
+    global batch: the loss over the gathered embeddings, global batch
+    statistics and random draws (``ASE.__call__``), and each rank
+    differentiates 1 / size of that replicated loss, so the gradients summed
+    over ``data`` are the one-process gradients. Every rank ends with the
+    same state; the loss returned is the global batch's."""
     dev = resolve_device(device)
     mel_cfg = mel_cfg or LogMelConfig()
+    data = mesh_axis(mesh, "data")
 
     def train_step(state: ASETrainState, batch, seed: int):
         g = torch.Generator(device=dev).manual_seed(fold_in(seed, state.step))
@@ -81,11 +94,12 @@ def make_ase_train_step(ase: ASE, optimizer, mel_cfg: Optional[LogMelConfig] = N
         params = tree_map(lambda t: t.detach().requires_grad_(), state.params)
         loss, new_stats = ase({"params": params, "batch_stats": state.batch_stats}, spec,
                               take("input_ids"), take("attention_mask"), take("idx"),
-                              train=True, generator=g)
+                              train=True, generator=g, data=data)
         leaves = tree_leaves(params)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = _unflatten(params, [torch.zeros_like(p) if gr is None else gr
-                                    for p, gr in zip(leaves, grads)])
+        share = loss if data is None else loss / data.size
+        grads = torch.autograd.grad(share, leaves, allow_unused=True)
+        grads = _unflatten(params, all_reduce_grads(
+            [torch.zeros_like(p) if gr is None else gr for p, gr in zip(leaves, grads)], data))
         detached = tree_map(lambda t: t.detach(), params)
         updates, opt_state = optimizer.update(grads, state.opt_state, detached)
         new_params = apply_updates(detached, updates)

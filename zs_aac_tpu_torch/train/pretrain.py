@@ -16,14 +16,29 @@ tower's log-mel is kernel K2 on the card. The HTSAT tower trains through the
 hand-written kernels: ``build_ase_from_config`` turns on ``fused_attn`` and
 makes ``fused_block`` every stage but the last on a CUDA device (the extract
 driver's dispatch): K7 forward and K8/K9 backward in stages 1-3, K5 forward
-and K6 backward in stage 4. One process, one card;
-multi-GPU data parallelism waits for its slice. Checkpoints are the port's
-own (``utils.checkpoints``).
+and K6 backward in stage 4. Checkpoints are the port's own
+(``utils.checkpoints``).
+
+Multi-GPU: under ``torchrun`` (``parallel.mesh.init_distributed``) the run
+is data-parallel over all ranks: rank 0's initial state is broadcast, each
+rank loads its ``local_batch_slice`` of every global batch (which must
+divide by the world size), and the train step gathers embeddings and batch
+statistics over ranks (``train/contrastive.py``). The step's draws take the
+config's seed on every rank, since each rank draws for the global batch.
+The random crops of clips longer than ``max_length`` take ``seed + rank``
+(the JAX driver's ``process_index`` offset) in each rank's load order, so
+the run trains as one process would on the same global batches only where
+no clip is cropped; with cropped clips world N differs from world 1 in the
+crops. Every rank runs ``validate``, which reassembles the ranks' rows
+(``allgather_by_index``; ``--max_val_batches`` caps the global batches, so
+every world size validates the same rows); only rank 0 writes checkpoints
+and logs.
 
 Run: ``python -m zs_aac_tpu_torch.train.pretrain -c configs/pretrain.yaml
 --device cuda`` (``-c`` is read by ``utils.config.load_config``, the YAML
 subset of the repo's configs, or JSON; ``run(config)`` takes the config as
-a dict).
+a dict); on N cards ``torchrun --nproc_per_node N -m
+zs_aac_tpu_torch.train.pretrain ...``.
 """
 
 from __future__ import annotations
@@ -44,9 +59,9 @@ def build_ase_from_config(config: dict, device="cuda"):
     ``build_ase_from_config``). ``fused_attn`` defaults to True where
     ``device`` is a CUDA device, and ``fused_block`` then to every HTSAT
     stage but the last; the port also reads an optional ``htsat_kwargs``
-    mapping of HTSAT geometry overrides. The port runs one process on one
-    card, so the host's device count does not enter (the JAX package's
-    single-device gate is about GSPMD, which has no counterpart here)."""
+    mapping of HTSAT geometry overrides. Each process drives one card, so
+    the host's device count does not enter (the JAX package's single-device
+    gate is about GSPMD, which has no counterpart here)."""
     from zs_aac_tpu_torch.models.ase import ASE, ASEConfig
 
     enc_args = config.get("audio_encoder_args", {})
@@ -163,20 +178,28 @@ def build_optimizer(config, steps_per_epoch: int):
     return apply_freeze(optimizer, config)
 
 
-def validate(encode_audio, encode_text, variables, batches, max_batches=None):
-    """Encode a val/test set and compute the t2a/a2t recalls (one process:
-    rows in the batches' order)."""
+def validate(encode_audio, encode_text, variables, batches):
+    """Encode a val/test set and compute the t2a/a2t recalls. Batches that
+    carry global row ids (``"index"``: the data module's, strided over
+    ranks) are reassembled in that order on every rank
+    (``allgather_by_index``), so every rank must call it; without ids the
+    rows keep the batches' order. A capped evaluation is capped at the
+    source (the data module's ``max_batches``), before the striding."""
     from zs_aac_tpu_torch.eval.retrieval import a2t, t2a
+    from zs_aac_tpu_torch.parallel.mesh import allgather_by_index
 
-    audio_embs, text_embs = [], []
-    for i, batch in enumerate(batches):
-        if max_batches and i >= max_batches:
-            break
+    audio_embs, text_embs, indices = [], [], []
+    row = 0
+    for batch in batches:
         audio_embs.append(encode_audio(variables, batch["wave"]).float().cpu().numpy())
         text_embs.append(encode_text(variables, batch["input_ids"],
                                      batch["attention_mask"]).float().cpu().numpy())
-    audio = np.concatenate(audio_embs)
-    text = np.concatenate(text_embs)
+        n = len(audio_embs[-1])
+        indices.append(np.asarray(batch["index"], np.int64) if "index" in batch
+                       else np.arange(row, row + n, dtype=np.int64))
+        row += n
+    audio, text = allgather_by_index(np.concatenate(indices), np.concatenate(audio_embs),
+                                     np.concatenate(text_embs))
     n = (audio.shape[0] // 5) * 5
     if n == 0:
         zero = {k: 0.0 for k in ("r1", "r5", "r10", "r50", "medr", "meanr", "mAP10")}
@@ -187,9 +210,10 @@ def validate(encode_audio, encode_text, variables, batches, max_batches=None):
 def run(config: dict, *, device="cuda", resume_ckpt=None, max_steps=None,
         max_val_batches=None) -> str:
     """The pretraining loop on a config dict; returns the checkpoint dir."""
-    from zs_aac_tpu_torch.utils.device import resolve_device
+    from zs_aac_tpu_torch.parallel.mesh import (barrier, init_distributed, is_main_process,
+                                                make_mesh_for_batch, process_index, replicate)
 
-    dev = resolve_device(device)
+    dev = init_distributed(device)
     from zs_aac_tpu_torch.data.bert_tokenizer import WordPieceTokenizer
     from zs_aac_tpu_torch.data.prefetch import prefetch
     from zs_aac_tpu_torch.data.retrieval_data import (AudioCaptionDataModule,
@@ -200,25 +224,26 @@ def run(config: dict, *, device="cuda", resume_ckpt=None, max_steps=None,
                                                     make_encode_fns)
     from zs_aac_tpu_torch.utils.checkpoints import restore_train_state, save_train_state
     from zs_aac_tpu_torch.utils.logging_utils import (AverageMeter, log_results, maybe_wandb,
-                                                      set_logger, setup_seed)
+                                                      rank_logger, setup_seed)
     from zs_aac_tpu_torch.utils.preemption import PreemptionGuard
 
     guard = PreemptionGuard()
+    main = is_main_process()
     seed = config.get("seed", 20)
-    setup_seed(seed)
+    setup_seed(seed + process_index())
     exp_name = config.get("exp_name", "pretrain")
     model_name = config["audio_encoder_args"].get("model", "Cnn14")
     lr = config["optim_args"]["lr"]
     exp_dir = f"{exp_name}_{model_name}_lr_{lr}_seed_{seed}"
-    logger = set_logger(exp_dir, config.get("output_dir", "outputs"))
-    wandb = maybe_wandb()
+    logger = rank_logger(exp_dir, config.get("output_dir", "outputs"))
+    wandb = maybe_wandb() if main else None
     wandb_run = wandb.init(project=exp_name, config=config) if wandb else None
 
     tokenizer = WordPieceTokenizer.from_file(config["text_encoder_args"]["vocab"])
     ase, _ = build_ase_from_config(config, device=dev)
     mel_cfg = LogMelConfig.from_dict(config["audio_args"])
     dataset = AudioLanguagePretrainDataset(config["json_files"], config["audio_args"],
-                                           config.get("blacklist"), seed)
+                                           config.get("blacklist"), seed + process_index())
     batch_size = config["data_args"]["batch_size"]
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     epochs = config["training"]["epochs"]
@@ -231,8 +256,10 @@ def run(config: dict, *, device="cuda", resume_ckpt=None, max_steps=None,
     if config.get("resume") and resume_ckpt:
         state = restore_train_state(resume_ckpt, state)
         start_epoch = state.step // steps_per_epoch
+    replicate(state)
 
-    train_step = make_ase_train_step(ase, optimizer, mel_cfg, device=dev)
+    train_step = make_ase_train_step(ase, optimizer, mel_cfg, device=dev,
+                                     mesh=make_mesh_for_batch(batch_size))
     encode_audio, encode_text = make_encode_fns(ase, mel_cfg, device=dev)
     val_modules = {name: AudioCaptionDataModule(config, name, tokenizer,
                                                 config.get("data_root", "data"))
@@ -252,7 +279,8 @@ def run(config: dict, *, device="cuda", resume_ckpt=None, max_steps=None,
             losses.append(loss)
             it += 1
             if guard.should_stop:
-                save_train_state(os.path.join(ckpt_dir, "preempt_model.ckpt"), state)
+                if main:
+                    save_train_state(os.path.join(ckpt_dir, "preempt_model.ckpt"), state)
                 logger.info("preempted at step %d; checkpoint saved", it)
                 guard.exit_gracefully()
             if max_steps and it >= max_steps:
@@ -264,21 +292,23 @@ def run(config: dict, *, device="cuda", resume_ckpt=None, max_steps=None,
             wandb_run.log({"loss": meter.avg, "epoch": epoch})
         if meter.avg < best_loss:
             best_loss = meter.avg
-            save_train_state(os.path.join(ckpt_dir, "best_model.ckpt"), state)
+            if main:
+                save_train_state(os.path.join(ckpt_dir, "best_model.ckpt"), state)
         variables = {"params": state.params, "batch_stats": state.batch_stats}
         for ds_name, dm in val_modules.items():
-            m_t2a, m_a2t = validate(encode_audio, encode_text, variables, dm.val_batches(),
-                                    max_val_batches)
+            m_t2a, m_a2t = validate(encode_audio, encode_text, variables,
+                                    dm.val_batches(max_val_batches))
             log_results(logger, m_t2a, ds_name, "t2a", epoch, wandb_run)
             log_results(logger, m_a2t, ds_name, "a2t", epoch, wandb_run)
             rsum = m_t2a["r1"] + m_t2a["r5"] + m_t2a["r10"]
-            if rsum > best_recall[ds_name]:
-                best_recall[ds_name] = rsum
+            if rsum > best_recall[ds_name] and main:
                 save_train_state(os.path.join(ckpt_dir, f"{ds_name}_best_model.ckpt"), state)
+            best_recall[ds_name] = max(best_recall[ds_name], rsum)
         if max_steps and it >= max_steps:
             break
 
     # the test sets on every saved checkpoint (reference pretrain.py:232-255)
+    barrier()
     for ckpt_name in ["best_model"] + [f"{ds}_best_model" for ds in val_modules]:
         path = os.path.join(ckpt_dir, f"{ckpt_name}.ckpt")
         if not os.path.exists(path):
@@ -286,8 +316,8 @@ def run(config: dict, *, device="cuda", resume_ckpt=None, max_steps=None,
         saved = restore_train_state(path, state)
         variables = {"params": saved.params, "batch_stats": saved.batch_stats}
         for ds_name, dm in val_modules.items():
-            m_t2a, m_a2t = validate(encode_audio, encode_text, variables, dm.test_batches(),
-                                    max_val_batches)
+            m_t2a, m_a2t = validate(encode_audio, encode_text, variables,
+                                    dm.test_batches(max_val_batches))
             log_results(logger, m_t2a, f"{ds_name}-test[{ckpt_name}]", "t2a", epochs, wandb_run)
             log_results(logger, m_a2t, f"{ds_name}-test[{ckpt_name}]", "a2t", epochs, wandb_run)
     guard.restore()
@@ -339,8 +369,13 @@ def main(argv=None):
         config["training"]["epochs"] = args.epochs
     if args.seed is not None:
         config["seed"] = args.seed
-    return run(config, device=args.device, resume_ckpt=args.resume_ckpt,
-               max_steps=args.max_steps, max_val_batches=args.max_val_batches)
+    from zs_aac_tpu_torch.parallel.mesh import destroy_distributed
+
+    try:
+        return run(config, device=args.device, resume_ckpt=args.resume_ckpt,
+                   max_steps=args.max_steps, max_val_batches=args.max_val_batches)
+    finally:
+        destroy_distributed()
 
 
 if __name__ == "__main__":

@@ -12,11 +12,16 @@ package's snapshot. ``--max_iters`` caps the steps.
 
 The train step is ``train/caption_trainer.py`` on ``--device`` (default
 ``cuda``; ``cpu`` runs on the CPU). ``--tokenizer`` takes GPT-2's BPE files
-or a SentencePiece ``.model``. ``--data_parallel`` (multi-GPU, A13 of
-ROADMAP.md) is not ported yet and raises ``NotImplementedError``.
+or a SentencePiece ``.model``. ``--data_parallel`` shards each batch over
+the ranks that ``torchrun`` started (the most that divide ``--bs``; one
+process without ``torchrun``): rank 0's parameters are broadcast, each rank
+trains on its rows and the gradients are summed, so the run trains as one
+process would on the same batches. Rank 0 names the run dir, writes the
+snapshots and the log, and runs the validation.
 
 Run: ``python -m zs_aac_tpu_torch.train.train_prompt --data bank.pkl
---valdata test.pkl ...``
+--valdata test.pkl ...``; on N cards ``torchrun --nproc_per_node N -m
+zs_aac_tpu_torch.train.train_prompt --data_parallel ...``.
 """
 
 from __future__ import annotations
@@ -32,8 +37,6 @@ import numpy as np
 import torch
 
 __all__ = ["build_parser", "main", "run_validation"]
-
-_LATER = "is ported in a later slice of the PyTorch port (see ROADMAP.md)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_iters", type=int, default=None,
                    help="reproduce the reference's epochs*600 iteration cap")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard batches over all devices (not ported yet)")
+                   help="shard batches over the ranks torchrun started (the "
+                        "reference's DDP)")
     # model
     p.add_argument("--prefix_length", type=int, default=10)
     p.add_argument("--prefix_length_clip", type=int, default=10)
@@ -216,13 +220,14 @@ def main(argv=None):
                                                         make_caption_optimizer,
                                                         make_caption_train_step, tensor_tree)
     from zs_aac_tpu_torch.train.optim import linear_warmup_lr
+    from zs_aac_tpu_torch.parallel.mesh import (broadcast_object, destroy_distributed,
+                                                init_distributed, is_main_process,
+                                                make_mesh_for_batch, replicate, shard_batch)
     from zs_aac_tpu_torch.utils.checkpoints import (criterion_improver, join_async_saves,
                                                     save_params_async)
-    from zs_aac_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
-    if args.data_parallel:
-        raise NotImplementedError(f"--data_parallel (multi-GPU training, A13) {_LATER}")
+    device = init_distributed(args.device)
+    main_proc = is_main_process()
     np.random.seed(args.seed)
 
     tokenizer, stop_id = _make_tokenizer(args.tokenizer, args.data)
@@ -255,14 +260,18 @@ def main(argv=None):
         gpt2=_gpt2_config(args.gpt2_size, tokenizer.vocab_size),
     )
 
-    out_dir = os.path.join(args.out_dir, time.strftime("%b-%d-%H-%M-%S", time.localtime()))
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = broadcast_object(
+        os.path.join(args.out_dir, time.strftime("%b-%d-%H-%M-%S", time.localtime())))
     args.output_dir = out_dir
-    with open(os.path.join(out_dir, "params.json"), "w") as f:
-        json.dump({**vars(args), "gpt2_vocab_size": ccfg.gpt2.vocab_size}, f)
     logger = logging.getLogger(f"train_caption.{out_dir}")
     logger.setLevel(logging.INFO)
-    handler = logging.FileHandler(os.path.join(out_dir, "train_caption.log"))
+    if main_proc:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "params.json"), "w") as f:
+            json.dump({**vars(args), "gpt2_vocab_size": ccfg.gpt2.vocab_size}, f)
+        handler = logging.FileHandler(os.path.join(out_dir, "train_caption.log"))
+    else:
+        handler = logging.NullHandler()
     logger.addHandler(handler)
     try:
         logger.info("Args: %s", vars(args))
@@ -275,7 +284,10 @@ def main(argv=None):
         if args.ckpt_file:
             state.params = _load_ckpt(state.params, args.ckpt_file, device)
             state.opt_state = optimizer.init(tensor_tree(state.params))
-        step_fn = make_caption_train_step(ccfg, optimizer, args.noise_variance, device=device)
+        mesh = make_mesh_for_batch(args.bs) if args.data_parallel else None
+        replicate(state.params)
+        step_fn = make_caption_train_step(ccfg, optimizer, args.noise_variance, device=device,
+                                          mesh=mesh)
 
         improved = criterion_improver("score")
         logger.info("%10s\t%10s\t%10s", "Epoch", "Train loss", "Val score")
@@ -291,30 +303,33 @@ def main(argv=None):
             losses = []
             for batch in prefetch(caption_batches(dataset, args.bs, shuffle=True,
                                                   seed=args.seed + epoch)):
-                state, loss = step_fn(state, batch, args.seed + 1)
+                state, loss = step_fn(state, shard_batch(batch, mesh), args.seed + 1)
                 losses.append(loss)
                 it += 1
-                if it % args.val_interval == 0:
+                if it % args.val_interval == 0 and main_proc:
                     score = validate()
                     logger.info("%10d\t%10.3g\t%10.3g", epoch, _mean_loss(losses), score)
                     if improved(score):
                         save_params_async(os.path.join(out_dir, "best.pth"), state.params)
                 if args.max_iters and it >= args.max_iters:
                     break
-            save_params_async(os.path.join(out_dir, "last.pth"), state.params)
+            if main_proc:
+                save_params_async(os.path.join(out_dir, "last.pth"), state.params)
             if args.max_iters and it >= args.max_iters:
                 break
 
         # a final validation, so that short runs still write best.pth
-        score = validate()
-        logger.info("final\t%10.3g\t%10.3g", _mean_loss(losses), score)
-        if improved(score):
-            save_params_async(os.path.join(out_dir, "best.pth"), state.params)
-        join_async_saves()
+        if main_proc:
+            score = validate()
+            logger.info("final\t%10.3g\t%10.3g", _mean_loss(losses), score)
+            if improved(score):
+                save_params_async(os.path.join(out_dir, "best.pth"), state.params)
+            join_async_saves()
+            print(f"run dir: {out_dir}  final CIDEr: {score:.4f}", flush=True)
     finally:
         logger.removeHandler(handler)
         handler.close()
-    print(f"run dir: {out_dir}  final CIDEr: {score:.4f}", flush=True)
+        destroy_distributed()
     return out_dir
 
 

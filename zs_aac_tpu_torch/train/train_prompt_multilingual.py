@@ -195,22 +195,34 @@ def _with_grads(tree, grads):
     return {"mapper": mapper, "lora": lora, "mistral": tree["mistral"]}
 
 
-def make_multilingual_train_step(ccfg, optimizer, noise_variance: float = 0.0, device="cuda"):
+def make_multilingual_train_step(ccfg, optimizer, noise_variance: float = 0.0, device="cuda",
+                                 mesh=None):
     """``train_step(state, batch, seed) -> (state, loss)``: noise into the
     prefix (``torch.Generator`` seeded with ``fold_in(seed, step)``), the
     training forward (``mistral_caption_train_logits``), cross-entropy past
     the language tag, gradients of the mapper and LoRA only, and the
     optimizer's update added in place. ``batch``: {"tokens", "mask",
-    "prefix", ["hard_prompt", "hard_mask"]}, numpy or tensors."""
+    "prefix", ["hard_prompt", "hard_mask"]}, numpy or tensors.
+
+    Under ``mesh`` (dims ``data`` x ``model``; the JAX dryrun's dp x tp
+    Mistral + LoRA step) ``batch`` is this rank's ``data`` rows, the base
+    and LoRA are this rank's shards (``parallel.tp.shard_mistral_params``,
+    ``shard_mistral_lora``; whole where ``model`` has one rank) and the
+    mapper is replicated: as the captioner's
+    step, the noise is drawn for the global batch, each rank differentiates
+    its share of the global loss, the gradients are summed over ``data``,
+    and the loss returned is the global batch's."""
     from zs_aac_tpu_torch.models.caption_mistral import (mistral_caption_loss,
                                                          mistral_caption_train_logits)
     from zs_aac_tpu_torch.train.caption_trainer import tensor_tree
     from zs_aac_tpu_torch.train.contrastive import fold_in
+    from zs_aac_tpu_torch.parallel.mesh import all_reduce_grads, all_sum, mesh_axis, tensor_axis
     from zs_aac_tpu_torch.train.optim import tree_leaves
     from zs_aac_tpu_torch.utils.device import resolve_device
     from zs_aac_tpu_torch.utils.noise import noise_injection
 
     dev = resolve_device(device)
+    data, tp = mesh_axis(mesh, "data"), tensor_axis(mesh)
 
     def train_step(state: MultilingualTrainState, batch, seed: int):
         g = torch.Generator(device=dev).manual_seed(fold_in(seed, state.step))
@@ -223,20 +235,23 @@ def make_multilingual_train_step(ccfg, optimizer, noise_variance: float = 0.0, d
             for p in leaves:
                 p.requires_grad_(True)
             tokens = take("tokens")
-            prefix = noise_injection(take("prefix").float(), noise_variance, generator=g)
+            prefix = noise_injection(take("prefix").float(), noise_variance, generator=g,
+                                     data=data)
             logits = mistral_caption_train_logits(state.params, ccfg, tokens, prefix,
                                                   take("mask"), take("hard_prompt"),
-                                                  take("hard_mask"))
-            loss = mistral_caption_loss(logits, tokens, ccfg.islang)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                                                  take("hard_mask"), tp=tp)
+            share = mistral_caption_loss(logits, tokens, ccfg.islang, data)
+            grads = torch.autograd.grad(share, leaves, allow_unused=True)
         for p in leaves:
             p.requires_grad_(False)
-        grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(leaves, grads)]
+        grads = all_reduce_grads([torch.zeros_like(p) if gr is None else gr
+                                  for p, gr in zip(leaves, grads)], data)
         with torch.no_grad():
             updates, opt_state = optimizer.update(_with_grads(tree, grads), state.opt_state, tree)
             for p, u in zip(leaves, _trainable(updates)):
                 p.add_(u)
-        return MultilingualTrainState(state.params, opt_state, state.step + 1), loss.detach()
+        loss = all_sum(share.detach(), data)
+        return MultilingualTrainState(state.params, opt_state, state.step + 1), loss
 
     return train_step
 

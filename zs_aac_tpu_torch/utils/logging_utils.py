@@ -18,7 +18,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["AverageMeter", "set_logger", "setup_seed", "log_results", "maybe_wandb"]
+__all__ = ["AverageMeter", "set_logger", "rank_logger", "setup_seed", "log_results",
+           "maybe_wandb"]
 
 
 class AverageMeter:
@@ -50,6 +51,20 @@ def set_logger(exp_name: str, log_dir: str = "outputs") -> logging.Logger:
               logging.FileHandler(os.path.join(folder, "output.log"))):
         h.setFormatter(fmt)
         logger.addHandler(h)
+    return logger
+
+
+def rank_logger(exp_name: str, log_dir: str = "outputs") -> logging.Logger:
+    """``set_logger`` on the main process; on the other ranks of a
+    multi-GPU run a logger that writes nothing."""
+    from zs_aac_tpu_torch.parallel.mesh import is_main_process, process_index
+
+    if is_main_process():
+        return set_logger(exp_name, log_dir)
+    logger = logging.getLogger(f"{exp_name}.rank{process_index()}")
+    logger.handlers.clear()
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
     return logger
 
 

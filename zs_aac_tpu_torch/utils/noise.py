@@ -31,16 +31,21 @@ def get_uniform_ball_noise(shape, radius: float = 0.1, generator=None):
 
 
 def noise_injection(x: torch.Tensor, variance: float = 0.001, uniform_noise: bool = False,
-                    dont_norm: bool = False, generator=None) -> torch.Tensor:
+                    dont_norm: bool = False, generator=None, data=None) -> torch.Tensor:
     """``x`` [B, E] normalized (unless ``dont_norm``), plus noise of
-    ``variance``, normalized again."""
+    ``variance``, normalized again. Under ``data`` (``parallel.mesh.Axis``;
+    ``x`` this rank's rows) the noise is drawn for the global batch and this
+    rank keeps its rows, as one process would draw them."""
     if variance == 0.0:
         return x
     std = math.sqrt(variance)
     if not dont_norm:
         x = _normalize(x)
+    shape = (x.shape[0] * (data.size if data else 1), *x.shape[1:])
+    local = data.local if data else (lambda v: v)
     if uniform_noise:
-        x = x + get_uniform_ball_noise(x.shape, radius=std, generator=generator).to(x)
+        x = x + local(get_uniform_ball_noise(shape, radius=std, generator=generator)).to(x)
     else:
-        x = x + torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype) * std
+        x = x + local(torch.randn(shape, generator=generator, device=x.device,
+                                  dtype=x.dtype)) * std
     return _normalize(x)
