@@ -13,13 +13,18 @@ which must pass:
    (B=256, H=12, d=64, T=77) and at edge shapes (B=1, d=16; d=24; d=12, 6
    and 5, the narrower loads), fp32 and bf16, then at every index 10..76 in
    turn on one cache (d=64 and 24), the cache rows and scales bytewise equal
-   after each step;
+   after each step; all of it again with the bf16 softmax (K1's second
+   instantiation, ``--bf16_softmax``), which is also held to a share of rows
+   within the fp32 rule that its control, the fp32 instantiation on the same
+   inputs, must fail;
 3. exact captions on learned weights: the port's ``predict_prompt`` on the
    committed tiny captioner (greedy and ``--q8``, beam ``--isbeam`` and
-   ``--isbeam --q8``, and MAGIC with the committed tiny CLAP checkpoint:
-   ``--magic``, ``--magic --isbeam``, ``--magic --q8``, ``--magic
-   --q8_tower``) reproduces the captions the JAX package recorded, K1
-   launched in the greedy and beam ``--q8`` modes only;
+   ``--isbeam --q8``, each beam also with ``--bf16_softmax``, and MAGIC
+   with the committed tiny CLAP checkpoint: ``--magic``, ``--magic
+   --isbeam``, ``--magic --q8``, ``--magic --q8_tower``) reproduces the
+   captions the JAX package recorded, K1 launched in the greedy and beam
+   ``--q8`` modes only, its bf16-softmax instantiation in ``--isbeam --q8
+   --bf16_softmax`` only;
 4. the decode half at full width: CLAP embedding -> MLP mapper
    1024->3840->7680 -> GPT-2 124M (seeded random weights), B=256, Lp=10, 67
    greedy steps, bf16 activations, w8a8 weights + int8 KV cache, every
@@ -28,7 +33,9 @@ which must pass:
    captions/s and K1's time per call beside its byte bound are measured
    with CUDA events (K1 launched from Python, the kernels line's ``ms``, and
    as a CUDA graph of the same launches, the kernel's own time, its
-   ``graph_ms``), and a ``torch.profiler`` table of one decode printed;
+   ``graph_ms``; the bf16-softmax instantiation likewise, ``bf16_softmax_ms``,
+   ``bf16_softmax_graph_ms`` and its plain version's ``bf16_softmax_plain_ms``),
+   and a ``torch.profiler`` table of one decode printed;
 5. K2 (log-mel) against its plain version at B=64 x 10 s and at edge shapes
    (B=1, odd T, T near n_fft and T = 513, silence, pure tones), also at the
    16 kHz config (n_fft 512, 40 mels), with 16 mels, and at B=8 and 64 x 30 s
@@ -96,11 +103,18 @@ which must pass:
     best beam (``argmax(scores)``, the driver's pick) its first; teacher-forced
     on the decode's own tokens and beam sources, K1's logits against the
     plain attention's within ``LOGIT_TOL`` (phase 4's flip rule); captions/s
-    (median of three walls), the best beam's free-running agreement with the
+    (median of five walls), the best beam's free-running agreement with the
     plain path, a ``torch.profiler`` table of one decode's kernels (read off
     the profiler's records: ``profiled_kernels``) with the device's busy
     time, idle share and K1's share, and ``reorder_beam_cache``'s time per
-    decode (CUDA events over the decode's positions) and its share;
+    decode (CUDA events over the decode's positions) and its share. Then the
+    same beam with the bf16 softmax (``--bf16_softmax``): every attention
+    through K1's bf16-softmax instantiation (launches n_layer x the steps
+    run, the kernels line's ``bf16_softmax_launches``), teacher-forced
+    logits against the plain bf16-softmax attention within ``LOGIT_TOL``,
+    captions/s beside the fp32-softmax decode's (five walls a side, the
+    two interleaved), the device busy time of one profiled decode of each,
+    and the share of best beams equal to its;
 15. MAGIC at full width: GPT-2 124M (phase 4's model, bf16 and w8a8) with a
     bert-base text tower and projection to 1024 (seeded, bf16) and seeded
     vocabularies of the published sizes (50,257 byte-level BPE tokens,
@@ -232,13 +246,37 @@ import numpy as np
 # shapes reach: max|o| 6.4). The cache row and scales come from identical
 # ops: bytewise equal. fp32: absolute; bf16: relative to the power of two at
 # or below the plain version's largest |o| (2^-7 of it is one bf16 step there).
+# The bf16 softmax (K1's second instantiation) rounds the scores and the
+# exponentials to bf16. Where the two orders' fp32 scores straddle a bf16
+# rounding boundary, one rounded score lands a bf16 step u of |s| from the
+# other's (u = 0.03125 for |s| in [4, 8)), which moves its e by a factor
+# exp(u) (and all the row's others if it is the row's maximum); so such a row
+# can be off by more than the fp32 rule, in fp32 activations too. The largest
+# |o - o_plain| is held to the bf16 rule in both activation dtypes. That alone
+# cannot tell the bf16 softmax from the fp32 one, whose rounding of every
+# score moves most rows by more than the fp32 rule and less than the bf16
+# step. What tells them apart is how many rows (b, h) differ: a straddle is
+# rare, so at most K1B_ROW_SHARE of the rows may pass the fp32 rule
+# (K1_TOL["float32"], in either activation dtype); and the fp32 instantiation
+# on the same inputs, held to the bf16 plain version, must pass it in more
+# than K1B_CONTROL_SHARE of the rows where index > 0 (the control; at index 0
+# both softmaxes give p = 1).
 K1_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+K1B_ROW_SHARE = 0.01
+K1B_CONTROL_SHARE = 0.5
 
 
-def k1_tol(name, ref):
-    if name == "float32":
+def k1_tol(name, ref, bf16_softmax=False):
+    if name == "float32" and not bf16_softmax:
         return K1_TOL[name]
-    return K1_TOL[name] * 2.0 ** math.floor(math.log2(ref.float().abs().max().item()))
+    return K1_TOL["bfloat16"] * 2.0 ** math.floor(math.log2(ref.float().abs().max().item()))
+
+
+def k1_rows_off(o, ref):
+    """Rows (b, h) of ``o`` that pass the fp32 rule anywhere against ``ref``."""
+    return int(((o.float() - ref.float()).abs().amax(-1) > K1_TOL["float32"]).sum().item())
+
+
 # Teacher-forced full-width logits (|logit| <= ~3): one-step bf16 differences
 # in attention outputs shift w8a8 activation quantization by at most one int8
 # step here and there, which moves logits by a few hundredths.
@@ -417,56 +455,90 @@ def phase_k1_vs_plain():
     from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8, decode_attn_q8_plain
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst = {}
+    worst, shares = {}, {}
     cases = [(256, 12, 77, 64, i) for i in (0, 10, 40, 76)] + \
             [(1, 4, 13, 16, i) for i in (0, 6, 12)] + [(8, 2, 13, 24, i) for i in (0, 12)] + \
             [(4, 3, 13, d, i) for d in (12, 6, 5) for i in (0, 12)]   # 4-, 2-, 1-byte loads
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        for B, H, T, d, index in cases:
-            a = k1_inputs(B, H, T, d, dtype, g)
-            b = [x.clone() for x in a]
-            o = decode_attn_q8(*a, index)
-            o_ref = decode_attn_q8_plain(*b, index)
-            torch.cuda.synchronize()
-            err, tol = (o.float() - o_ref.float()).abs().max().item(), k1_tol(name, o_ref)
-            same = all(torch.equal(x, y) for x, y in zip(a[3:], b[3:]))
-            print(f"[k1] {name} B={B} H={H} T={T} d={d} index={index}: "
-                  f"max|o-o_plain|={err:.3g} (tol {tol:.3g}), cache bytes equal={same}",
-                  flush=True)
-            check(err <= tol, f"K1 disagrees with its plain version ({err} > {tol})")
-            check(same, "K1's cache row or scales differ from the plain version's")
-            if B == 256:
-                worst[name] = max(worst.get(name, 0.0), err)
-    # the decode's order: one cache, every index 10..76 in turn with new
-    # q/k/v, the kernel's copy and the plain version's compared after each
-    for d in (64, 24):
-        a = k1_inputs(256, 12, 77, d, torch.bfloat16, g)
-        b = [x.clone() for x in a[3:]]
-        err, n_same, n_over = 0.0, 0, 0
-        for index in range(10, 77):
-            qkv = [torch.randn(256, 12, d, generator=g, device="cuda").bfloat16() * s
-                   for s in (1, 2, 1)]
-            o = decode_attn_q8(*qkv, *a[3:], index)
-            o_ref = decode_attn_q8_plain(*qkv, *b, index)
-            e = (o.float() - o_ref.float()).abs().max().item()
-            err, n_over = max(err, e), n_over + (e > k1_tol("bfloat16", o_ref))
-            n_same += all(torch.equal(x, y) for x, y in zip(a[3:], b))
-        print(f"[k1] bfloat16 B=256 H=12 T=77 d={d}, indices 10..76 in turn on one cache: "
-              f"caches bytewise equal after {n_same} of 67 steps, max|o-o_plain|={err:.3g}, "
-              f"over one bf16 step at the largest |o| in {n_over} of 67 steps", flush=True)
-        check(n_same == 67, "K1's cache rows or scales differ from the plain version's")
-        check(n_over == 0, "K1 disagrees with its plain version")
-        if d == 64:
-            worst["bfloat16"] = max(worst["bfloat16"], err)
-    return worst
+    # both instantiations: the fp32 softmax and the beam's opt-in bf16 softmax
+    for smax in (torch.float32, torch.bfloat16):
+        bf16_smax = smax == torch.bfloat16
+        sm = "/bf16_softmax" if bf16_smax else ""
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            off = rows = ctl_off = ctl_rows = 0
+            for B, H, T, d, index in cases:
+                a = k1_inputs(B, H, T, d, dtype, g)
+                b = [x.clone() for x in a]
+                o = decode_attn_q8(*a, index, smax)
+                o_ref = decode_attn_q8_plain(*b, index, smax)
+                torch.cuda.synchronize()
+                err = (o.float() - o_ref.float()).abs().max().item()
+                tol = k1_tol(name, o_ref, bf16_smax)
+                same = all(torch.equal(x, y) for x, y in zip(a[3:], b[3:]))
+                print(f"[k1] {name}{sm} B={B} H={H} T={T} d={d} index={index}: "
+                      f"max|o-o_plain|={err:.3g} (tol {tol:.3g}), cache bytes equal={same}",
+                      flush=True)
+                check(err <= tol, f"K1{sm} disagrees with its plain version ({err} > {tol})")
+                check(same, f"K1{sm}'s cache row or scales differ from the plain version's")
+                if B == 256:
+                    worst[name + sm] = max(worst.get(name + sm, 0.0), err)
+                if bf16_smax:
+                    off, rows = off + k1_rows_off(o, o_ref), rows + B * H
+                    if index > 0:   # the control: the fp32 instantiation (row `index`
+                        # is rewritten with the same bytes)
+                        o_f32 = decode_attn_q8(*a, index, torch.float32)
+                        ctl_off, ctl_rows = ctl_off + k1_rows_off(o_f32, o_ref), ctl_rows + B * H
+            if bf16_smax:
+                shares[name] = (off / rows, ctl_off / ctl_rows)
+                print(f"[k1] {name}/bf16_softmax: {off} of {rows} rows past the fp32 rule "
+                      f"(limit {K1B_ROW_SHARE:.0%}); control, the fp32 instantiation against "
+                      f"the bf16 plain version: {ctl_off} of {ctl_rows} rows at index > 0 "
+                      f"(must pass {K1B_CONTROL_SHARE:.0%})", flush=True)
+                check(off <= K1B_ROW_SHARE * rows,
+                      f"K1/bf16_softmax ({name}) differs from its plain version in {off} of "
+                      f"{rows} rows")
+                check(ctl_off > K1B_CONTROL_SHARE * ctl_rows,
+                      f"the row rule cannot tell the fp32 softmax from the bf16 one ({name}: "
+                      f"{ctl_off} of {ctl_rows} rows)")
+        # the decode's order: one cache, every index 10..76 in turn with new
+        # q/k/v, the kernel's copy and the plain version's compared after each
+        for d in (64, 24):
+            a = k1_inputs(256, 12, 77, d, torch.bfloat16, g)
+            b = [x.clone() for x in a[3:]]
+            err, n_same, n_over, off = 0.0, 0, 0, 0
+            for index in range(10, 77):
+                qkv = [torch.randn(256, 12, d, generator=g, device="cuda").bfloat16() * s
+                       for s in (1, 2, 1)]
+                o = decode_attn_q8(*qkv, *a[3:], index, smax)
+                o_ref = decode_attn_q8_plain(*qkv, *b, index, smax)
+                e = (o.float() - o_ref.float()).abs().max().item()
+                err, n_over = max(err, e), n_over + (e > k1_tol("bfloat16", o_ref))
+                n_same += all(torch.equal(x, y) for x, y in zip(a[3:], b))
+                off += k1_rows_off(o, o_ref)
+            rows = 67 * 256 * 12
+            print(f"[k1] bfloat16{sm} B=256 H=12 T=77 d={d}, indices 10..76 in turn on one "
+                  f"cache: caches bytewise equal after {n_same} of 67 steps, "
+                  f"max|o-o_plain|={err:.3g}, over one bf16 step at the largest |o| in "
+                  f"{n_over} of 67 steps, {off} of {rows} rows past the fp32 rule", flush=True)
+            check(n_same == 67, f"K1{sm}'s cache rows or scales differ from the plain version's")
+            check(n_over == 0, f"K1{sm} disagrees with its plain version")
+            if bf16_smax:
+                check(off <= K1B_ROW_SHARE * rows,
+                      f"K1/bf16_softmax differs from its plain version in {off} of {rows} rows "
+                      "in the decode's order")
+            if d == 64:
+                worst["bfloat16" + sm] = max(worst["bfloat16" + sm], err)
+    return worst, shares
 
 
 # MAGIC on the tiny captioner: the committed tiny CLAP checkpoint; width 5
 # fits its 24-word vocabulary (tests/test_torch_predict.py's MODES)
 FIXTURE_MAGIC = ["--magic", "--magic_width", "5"]
 FIXTURE_MODES = {"greedy": [], "q8": ["--q8"], "beam": ["--isbeam"],
-                 "beam_q8": ["--isbeam", "--q8"], "magic": FIXTURE_MAGIC,
+                 "beam_q8": ["--isbeam", "--q8"],
+                 "beam_bf16_softmax": ["--isbeam", "--bf16_softmax"],
+                 "beam_q8_bf16_softmax": ["--isbeam", "--q8", "--bf16_softmax"],
+                 "magic": FIXTURE_MAGIC,
                  "magic_beam": FIXTURE_MAGIC + ["--isbeam"], "magic_q8": FIXTURE_MAGIC + ["--q8"],
                  "magic_q8_tower": FIXTURE_MAGIC + ["--q8_tower"]}
 
@@ -481,21 +553,25 @@ def phase_fixture_captions():
             staged = stage_tiny_captioner(tmp)
             if mode.startswith("magic"):
                 flags = flags + ["--clap_ckpt", staged["clap_ckpt"]]
-            decode_attn_q8.launches = 0
+            decode_attn_q8.launches = decode_attn_q8.bf16_softmax_launches = 0
             predict(["--test_dir", staged["run_dir"], "--data", staged["test_bank"],
                      "--device", "cuda"] + flags)
-            launches = decode_attn_q8.launches
+            launches, bf16_launches = decode_attn_q8.launches, decode_attn_q8.bf16_softmax_launches
             with open(f"{staged['run_dir']}/output.txt") as f:
                 got = {p["filename"]: p["caption"] for p in json.load(f)["predictions"]}
         want = staged["expected"][mode]
         n_same = sum(got.get(k) == v for k, v in want.items())
         print(f"[fixture] predict_prompt {mode} on cuda: {n_same}/{len(want)} captions "
-              f"equal to the JAX package's, K1 launches {launches}", flush=True)
+              f"equal to the JAX package's, K1 launches {launches} (bf16 softmax "
+              f"{bf16_launches})", flush=True)
         check(got == want, f"{mode} captions differ from the recorded ones")
-        # K1 serves the int8 KV cache of greedy and beam --q8; MAGIC's probe
-        # cache stays float under --q8
-        check((launches > 0) == (mode in ("q8", "beam_q8")),
+        # K1 serves the int8 KV cache of greedy and beam --q8 (its bf16-softmax
+        # instantiation under --bf16_softmax); MAGIC's probe cache stays float
+        # under --q8
+        check((launches > 0) == (mode in ("q8", "beam_q8", "beam_q8_bf16_softmax")),
               f"{mode}: unexpected K1 launches {launches}")
+        check(bf16_launches == (launches if mode == "beam_q8_bf16_softmax" else 0),
+              f"{mode}: unexpected bf16-softmax K1 launches {bf16_launches}")
 
 
 def phase_full_width():
@@ -592,18 +668,28 @@ def phase_full_width():
     # kernels line's "ms", as before), and as a CUDA graph of the same 20
     # launches, the kernel's own time ("graph_ms").
     g = torch.Generator(device="cuda").manual_seed(3)
+    # The bf16-softmax instantiation is timed the same way, between the
+    # fp32 one's calls ("bf16_softmax_ms", "bf16_softmax_graph_ms").
     bufs = [k1_inputs(B, H, Lp + steps, d, torch.bfloat16, g) for _ in range(4)]
-    kms, gms, pms, bms, nbytes = [], [], [], [], []
+    kms, gms, pms, bms, nbytes, kms_bf, gms_bf, pms_bf = [], [], [], [], [], [], [], []
+    bf = torch.bfloat16
     for index in range(Lp, Lp + steps):
         decode_attn_q8(*bufs[0], index)
+        decode_attn_q8(*bufs[0], index, bf)
         kms.append(timed_ms(lambda r: decode_attn_q8(*bufs[r % 4], index), 20))
+        kms_bf.append(timed_ms(lambda r: decode_attn_q8(*bufs[r % 4], index, bf), 20))
         gms.append(graph_ms(lambda r: decode_attn_q8(*bufs[r % 4], index), 20))
+        gms_bf.append(graph_ms(lambda r: decode_attn_q8(*bufs[r % 4], index, bf), 20))
         pms.append(timed_ms(lambda r: decode_attn_q8_plain(*bufs[r % 4], index), 4))
+        pms_bf.append(timed_ms(lambda r: decode_attn_q8_plain(*bufs[r % 4], index, bf), 4))
         bm, nb = k1_bound(B, H, d, index, 2)
         bms.append(bm)
         nbytes.append(nb)
     k1 = {"ms": statistics.mean(kms), "graph_ms": statistics.mean(gms),
-          "plain_ms": statistics.mean(pms), "bound_ms": statistics.mean(bms)}
+          "plain_ms": statistics.mean(pms), "bound_ms": statistics.mean(bms),
+          "bf16_softmax_ms": statistics.mean(kms_bf),
+          "bf16_softmax_graph_ms": statistics.mean(gms_bf),
+          "bf16_softmax_plain_ms": statistics.mean(pms_bf)}
     print(f"[full] K1 per call, mean over index {Lp}..{Lp + steps - 1} at B={B} bf16: "
           f"{k1['ms'] * 1e3:.2f} us launched from Python, {k1['graph_ms'] * 1e3:.2f} us in a "
           f"CUDA graph (bound {k1['bound_ms'] * 1e3:.2f} us, "
@@ -613,6 +699,11 @@ def phase_full_width():
           f"{k1['plain_ms'] * 1e3:.2f} us; first/last index {kms[0] * 1e3:.2f}/"
           f"{kms[-1] * 1e3:.2f} us from Python, {gms[0] * 1e3:.2f}/{gms[-1] * 1e3:.2f} us in "
           f"the graph", flush=True)
+    print(f"[full] K1's bf16-softmax instantiation, the same calls: "
+          f"{k1['bf16_softmax_ms'] * 1e3:.2f} us launched from Python, "
+          f"{k1['bf16_softmax_graph_ms'] * 1e3:.2f} us in a CUDA graph "
+          f"({k1['bound_ms'] / k1['bf16_softmax_graph_ms']:.1%} of bound), plain "
+          f"{k1['bf16_softmax_plain_ms'] * 1e3:.2f} us", flush=True)
     print(f"[full] K1's kernel time in one decode: {launches} x {k1['graph_ms']:.4f} ms = "
           f"{launches * k1['graph_ms']:.2f} ms of {wall * 1e3:.2f} ms", flush=True)
 
@@ -673,23 +764,61 @@ def phase_beam_full_width():
         emb = caption_embeddings(params, cfg, prefix).to(torch.bfloat16)
         del params
 
-    def decode(attention=decode_attn_q8):
-        return beam.beam_search_batched_q8(qp, gcfg, emb, K, steps, 13, attention=attention)
+    def decode(attention=decode_attn_q8, fast_softmax=False):
+        return beam.beam_search_batched_q8(qp, gcfg, emb, K, steps, 13, 1.0, fast_softmax,
+                                           attention=attention)
+
+    def counted(fast_softmax=False):
+        """The main path, counted: (outputs, wall, K1 launches, of them the
+        bf16 softmax's, each step's selection for the teacher forcing)."""
+        picks, select = [], beam._beam_select
+        beam._beam_select = lambda *a: picks.append(select(*a)) or picks[-1]
+        try:
+            decode_attn_q8.launches = decode_attn_q8.bf16_softmax_launches = 0
+            t0 = time.perf_counter()
+            out = decode(fast_softmax=fast_softmax)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return (out, wall, decode_attn_q8.launches, decode_attn_q8.bf16_softmax_launches,
+                    picks)
+        finally:
+            beam._beam_select = select
+
+    def teacher_forced(picks, steps_run, smax):
+        """Logits of K1 and of the plain attention on the decode's own tokens
+        and beam sources: (max |diff|, max |logit|, argmax flips, the largest
+        top-2 margin at a flip)."""
+        with torch.no_grad():
+            caches = []
+            for _ in range(2):
+                c = init_kv_cache_q8(gcfg, B, Lp + steps)
+                logits, c = gpt2_prefill_q8(qp, gcfg, emb, c)
+                caches.append(expand_beam_cache(c, K))
+            _, cur = beam._topk_argmax(torch.log_softmax(logits[:, -1].float(), dim=-1), K)
+            dmax, flip_margin, n_flips, lmax = 0.0, 0.0, 0, 0.0
+            for i in range(1, steps_run + 1):
+                x = gpt2_embed(qp, cur.reshape(-1))
+                lk, _ = gpt2_step_q8(qp, gcfg, x, caches[0], Lp + i - 1, decode_attn_q8, smax)
+                lp, _ = gpt2_step_q8(qp, gcfg, x, caches[1], Lp + i - 1, decode_attn_q8_plain,
+                                     smax)
+                dmax = max(dmax, (lk - lp).abs().max().item())
+                lmax = max(lmax, lp.abs().max().item())
+                top2 = lp.topk(2, dim=-1).values
+                flips = lk.argmax(-1) != lp.argmax(-1)
+                if flips.any():
+                    n_flips += int(flips.sum())
+                    flip_margin = max(flip_margin,
+                                      (top2[:, 0] - top2[:, 1])[flips].max().item())
+                _, src, cur, _ = picks[i - 1]
+                for c in caches:
+                    reorder_beam_cache(c, src, Lp + i)
+        return dmax, lmax, n_flips, flip_margin
 
     decode()                                    # warm-up
     torch.cuda.synchronize()
-    # the main path, counted; each step's selection kept for the teacher forcing
-    picks, select = [], beam._beam_select
-    beam._beam_select = lambda *a: picks.append(select(*a)) or picks[-1]
-    try:
-        decode_attn_q8.launches = 0
-        t0 = time.perf_counter()
-        toks, lens, scores = decode()
-        torch.cuda.synchronize()
-        walls = [time.perf_counter() - t0]
-        launches = decode_attn_q8.launches
-    finally:
-        beam._beam_select = select
+    (toks, lens, scores), wall0, launches, bf16_launches, picks = counted()
+    walls = [wall0]
+    check(bf16_launches == 0, "beam: the fp32-softmax decode launched the bf16 softmax's K1")
     steps_run = beam_steps_run(lens, steps)
     print(f"[beam] w8a8+q8 beam B={B} K={K} Lp={Lp}: lengths min/max {int(lens.min())}/"
           f"{int(lens.max())}, steps run {steps_run}, K1 launches {launches} "
@@ -705,15 +834,6 @@ def phase_beam_full_width():
     print(f"[beam] best beam (argmax of scores) is the first in {int((best == 0).sum())} of "
           f"{B} clips, within an fp32 rounding of it in {int(first_best.sum())}", flush=True)
     check(bool(first_best.all()), "beam: a clip's best beam is not its first")
-    for _ in range(2):
-        t0 = time.perf_counter()
-        decode()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
-    print(f"[beam] decode walls {[round(w * 1e3, 2) for w in walls]} ms -> "
-          f"{B / wall:.1f} captions/s (median; {steps_run} steps, {B * K} beam rows)",
-          flush=True)
 
     # free-running agreement of the best beams with the plain attention (information)
     rows = torch.arange(B, device="cuda")
@@ -725,44 +845,73 @@ def phase_beam_full_width():
           f"({same} of {B} captions identical)", flush=True)
 
     # teacher-forced on the decode's own tokens and beam sources: K1 vs plain
-    with torch.no_grad():
-        caches = []
-        for _ in range(2):
-            c = init_kv_cache_q8(gcfg, B, Lp + steps)
-            logits, c = gpt2_prefill_q8(qp, gcfg, emb, c)
-            caches.append(expand_beam_cache(c, K))
-        _, cur = beam._topk_argmax(torch.log_softmax(logits[:, -1].float(), dim=-1), K)
-        dmax, flip_margin, n_flips, lmax = 0.0, 0.0, 0, 0.0
-        for i in range(1, steps_run + 1):
-            x = gpt2_embed(qp, cur.reshape(-1))
-            lk, _ = gpt2_step_q8(qp, gcfg, x, caches[0], Lp + i - 1)
-            lp, _ = gpt2_step_q8(qp, gcfg, x, caches[1], Lp + i - 1,
-                                 attention=decode_attn_q8_plain)
-            dmax = max(dmax, (lk - lp).abs().max().item())
-            lmax = max(lmax, lp.abs().max().item())
-            top2 = lp.topk(2, dim=-1).values
-            flips = lk.argmax(-1) != lp.argmax(-1)
-            if flips.any():
-                n_flips += int(flips.sum())
-                flip_margin = max(flip_margin, (top2[:, 0] - top2[:, 1])[flips].max().item())
-            _, src, cur, _ = picks[i - 1]
-            for c in caches:
-                reorder_beam_cache(c, src, Lp + i)
+    dmax, lmax, n_flips, flip_margin = teacher_forced(picks, steps_run, torch.float32)
     print(f"[beam] teacher-forced logits, K1 vs plain: max|diff| {dmax:.4g} (tol {LOGIT_TOL}; "
           f"max|logit| {lmax:.3g}), argmax flips {n_flips} of {B * K * steps_run}, largest "
           f"top-2 margin at a flip {flip_margin:.4g}", flush=True)
     check(dmax <= LOGIT_TOL, "beam: teacher-forced logits diverge beyond the bf16 tolerance")
     check(n_flips == 0 or flip_margin <= 2 * dmax,
           "beam: an argmax flip at a top-2 margin larger than the logit divergence")
-    del caches
 
-    # where one decode spends its device time; K1's share of it
+    # the opt-in bf16 attention softmax (predict_prompt --bf16_softmax): K1's
+    # bf16-softmax instantiation on every layer of every step
+    decode(fast_softmax=True)                   # warm-up
+    torch.cuda.synchronize()
+    (toks_b, lens_b, scores_b), wall_b, launches_b, bf16_launches, picks_b = counted(True)
+    steps_b = beam_steps_run(lens_b, steps)
+    print(f"[beam] bf16-softmax w8a8+q8 beam B={B} K={K}: steps run {steps_b}, K1 launches "
+          f"{launches_b}, of them the bf16 softmax's {bf16_launches} (expected "
+          f"{gcfg.n_layer} x {steps_b})", flush=True)
+    check(launches_b == bf16_launches == gcfg.n_layer * steps_b,
+          "beam: bf16-softmax K1 launch count off the main path's")
+    check(len(picks_b) == steps_b, "beam: bf16-softmax selections off the steps run")
+    check(bool(((toks_b >= 0) & (toks_b < gcfg.vocab_size)).all())
+          and bool(torch.isfinite(scores_b).all()), "beam: bf16-softmax outputs out of range")
+    walls_b = [wall_b]
+    best_b = scores_b.argmax(dim=1)
+    same_best = (toks_b[rows, best_b] == toks[rows, best]).all(dim=1)
+    print(f"[beam] bf16-softmax best beams equal to the fp32-softmax decode's in "
+          f"{int(same_best.sum())} of {B} clips ({same_best.float().mean().item():.1%})",
+          flush=True)
+    dmax, lmax, n_flips, flip_margin = teacher_forced(picks_b, steps_b, torch.bfloat16)
+    print(f"[beam] bf16-softmax teacher-forced logits, K1 vs plain: max|diff| {dmax:.4g} "
+          f"(tol {LOGIT_TOL}; max|logit| {lmax:.3g}), argmax flips {n_flips} of "
+          f"{B * K * steps_b}, largest top-2 margin at a flip {flip_margin:.4g}", flush=True)
+    check(dmax <= LOGIT_TOL,
+          "beam: bf16-softmax teacher-forced logits diverge beyond the bf16 tolerance")
+    check(n_flips == 0 or flip_margin <= 2 * dmax,
+          "beam: a bf16-softmax argmax flip at a top-2 margin larger than the logit divergence")
+
+    # walls of the two softmaxes interleaved on one host, five a side (the
+    # counted runs above included): the host moves walls by hundreds of ms
+    for _ in range(4):
+        for fast, ws in ((False, walls), (True, walls_b)):
+            t0 = time.perf_counter()
+            decode(fast_softmax=fast)
+            torch.cuda.synchronize()
+            ws.append(time.perf_counter() - t0)
+    wall, wall_b = statistics.median(walls), statistics.median(walls_b)
+    for label, ws, w in (("decode", walls, wall), ("bf16-softmax decode", walls_b, wall_b)):
+        print(f"[beam] {label} walls {[round(x * 1e3, 2) for x in ws]} ms -> "
+              f"{B / w:.1f} captions/s (median; {B / max(ws):.1f}-{B / min(ws):.1f}; "
+              f"{steps_run if ws is walls else steps_b} steps, {B * K} beam rows)", flush=True)
+
+    # where one decode spends its device time; K1's share of it; the same of
+    # the bf16-softmax decode (device time does not move with the host)
+    def device_ms(kernels):
+        return (sum(ms for ms, _ in kernels.values()),
+                sum(ms for name, (ms, _) in kernels.items() if "decode_attn_q8_kernel" in name))
+
+    pwall_b, kernels_b = profiled_kernels(lambda: decode(fast_softmax=True))
     pwall, kernels = profiled_kernels(decode)
-    dev_ms = sum(ms for ms, _ in kernels.values())
-    k1_ms = sum(ms for name, (ms, _) in kernels.items() if "decode_attn_q8_kernel" in name)
+    dev_ms, k1_ms = device_ms(kernels)
+    dev_ms_b, k1_ms_b = device_ms(kernels_b)
     print(f"[beam] one decode under torch.profiler: wall {pwall:.2f} ms, device busy "
           f"{dev_ms:.2f} ms, idle {1 - dev_ms / pwall:.1%}; K1 {k1_ms:.2f} ms "
           f"({k1_ms / dev_ms:.1%} of the device time)", flush=True)
+    print(f"[beam] one bf16-softmax decode under torch.profiler: wall {pwall_b:.2f} ms, device "
+          f"busy {dev_ms_b:.2f} ms ({dev_ms_b / dev_ms - 1:+.2%} against the fp32 softmax's), "
+          f"idle {1 - dev_ms_b / pwall_b:.1%}; K1 {k1_ms_b:.2f} ms", flush=True)
     print(f"{'device ms':>10} {'share':>6} {'calls':>6} {'us/call':>8}  kernel", flush=True)
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"{ms:10.2f} {ms / dev_ms:6.1%} {n:6d} {ms / n * 1e3:8.2f}  {name[:100]}",
@@ -781,7 +930,7 @@ def phase_beam_full_width():
           f"({reorder_ms / dev_ms:.1%} of the profiled device time; "
           f"{nbytes / 1e9:.2f} GB read and written, "
           f"{nbytes / (reorder_ms * 1e-3) / 1e12:.2f} TB/s)", flush=True)
-    return launches
+    return launches, bf16_launches
 
 # -- MAGIC at full width (phase 15) --------------------------------------------
 
@@ -3631,7 +3780,7 @@ def main():
 
     t_start = time.perf_counter()
     phase_build()
-    worst = phase_k1_vs_plain()
+    worst, k1b_shares = phase_k1_vs_plain()
     phase_fixture_captions()
     launches, k1 = phase_full_width()
     k2_err = phase_k2_vs_plain()
@@ -3643,7 +3792,7 @@ def main():
     phase_fixture_train()
     phase_drivers()
     train_launches, train = phase_train_full_width()
-    beam_launches = phase_beam_full_width()
+    beam_launches, bf16_softmax_launches = phase_beam_full_width()
     phase_magic_full_width()
     cnn_launches = phase_cnn_full_width()
     chain_launches = phase_caption_train()
@@ -3660,6 +3809,15 @@ def main():
         "beam_launches": beam_launches,
         "caption_chain_launches": chain_launches,
         "max_abs_err": worst["bfloat16"],
+        "bf16_softmax_launches": bf16_softmax_launches,
+        "bf16_softmax_max_abs_err": worst["bfloat16/bf16_softmax"],
+        # rows past the fp32 rule, and the fp32 instantiation's (the control),
+        # each against the bf16-softmax plain version, per activation dtype
+        "bf16_softmax_rows_off": {k: v[0] for k, v in k1b_shares.items()},
+        "bf16_softmax_control_rows_off": {k: v[1] for k, v in k1b_shares.items()},
+        "bf16_softmax_ms": k1["bf16_softmax_ms"],
+        "bf16_softmax_graph_ms": k1["bf16_softmax_graph_ms"],
+        "bf16_softmax_plain_ms": k1["bf16_softmax_plain_ms"],
         "ms": k1["ms"],
         "graph_ms": k1["graph_ms"],
         "plain_ms": k1["plain_ms"],

@@ -19,6 +19,10 @@
   float beam tokens identical to JAX's; the int8-cache beam over float and
   w8a8 weights gives JAX ``beam_search_batched_q8``'s captions and the
   float beam's.
+- The opt-in bf16 attention softmax on the learned captioner: the bound of
+  ``tests/test_quantized_decode.py``'s agreement test (the bf16 softmax
+  against the JAX package's, tokens and steps, is
+  ``tests/test_torch_bf16_softmax.py``).
 - Leaving the loop early: checking for "every beam stopped" every step or
   every ``CHECK_EVERY`` steps gives identical outputs.
 """
@@ -208,6 +212,35 @@ def test_beam_q8_captions_identical_to_jax(learned, weights):  # noqa: F811
     ft, fl, _ = tbeam.beam_search_batched(from_jax_params(params["gpt2"], device="cpu"),
                                           _port_gcfg(ccfg), torch.from_numpy(emb), 3, 12, stop)
     assert _best_captions(tok, ft, fl) == want
+
+
+def test_bf16_softmax_beam_agreement_on_learned_weights(learned):  # noqa: F811
+    """``tests/test_quantized_decode.py``'s bound for the JAX package's
+    opt-in bf16 attention softmax, held by the port's: the float beam and the
+    w8a8 + int8-cache beam (K1's plain version) with ``fast_softmax=True``
+    give at least n - 1 of n best captions equal to the fp32-softmax float
+    beam's, and CIDEr within 0.05 of it."""
+    from test_torch_greedy import CAPTIONS
+    from zs_aac_tpu_torch.eval.captioning import eval_prediction
+    from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8_plain
+
+    def cider(preds):
+        refs = {f"c{i}": [CAPTIONS[i % 4]] for i in range(len(preds))}
+        return eval_prediction(refs, {f"c{i}": [p] for i, p in enumerate(preds)},
+                               metrics=("CIDEr",))["CIDEr"]
+
+    tok, ccfg, params, prefixes, emb = learned
+    gcfg, stop, x = _port_gcfg(ccfg), tok.stop_token_id, torch.from_numpy(emb)
+    gp = from_jax_params(params["gpt2"], device="cpu")
+    qp = tg.quantize_gpt2_int8(gp, "w8a8")
+    best0 = _best_captions(tok, *tbeam.beam_search_batched(gp, gcfg, x, 3, 12, stop)[:2])
+    assert best0 == [CAPTIONS[i % 4] for i in range(12)]
+    for out in (tbeam.beam_search_batched(gp, gcfg, x, 3, 12, stop, 1.0, True),
+                tbeam.beam_search_batched_q8(qp, gcfg, x, 3, 12, stop, 1.0, True,
+                                             attention=decode_attn_q8_plain)):
+        best = _best_captions(tok, *out[:2])
+        assert sum(a == b for a, b in zip(best, best0)) >= len(best0) - 1
+        assert abs(cider(best) - cider(best0)) < 0.05
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["float", "q8"])

@@ -322,11 +322,6 @@ def _leaves(tree, prefix=""):
     return {prefix: tree}
 
 
-def test_orbax_checkpoint_dirs_wait(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port_extract.load_ase_encoders(dataset["config"], str(tmp_path), device="cpu")
-
-
 def test_committed_fixture_embeddings(tmp_path):
     """The port (plain versions, CPU) reproduces the embeddings the JAX
     package recorded for the committed fixture."""

@@ -255,14 +255,6 @@ def test_multilingual_drivers_default_to_cuda_and_raise_without_it(driver, monke
     assert not any(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("flag", ["--bf16_softmax"])
-def test_predict_later_slices_raise(flag, tmp_path):
-    (tmp_path / "params.json").write_text('{"data": [], "prefix_length": 4}')
-    with pytest.raises(NotImplementedError, match="later slice"):
-        predict_prompt.main(["--test_dir", str(tmp_path), "--data", "none.pkl",
-                             "--device", "cpu", flag])
-
-
 def test_extract_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     args = extract.build_parser().parse_args(["--out_path", "x"])
     assert args.device == "cuda"

@@ -13,7 +13,10 @@ arrays flax loads, and its parser must take every option of the JAX
 package's.
 
 Regenerate the committed fixture with
-``PYTHONPATH=. python tests/test_torch_predict.py --write-fixture``.
+``PYTHONPATH=. python tests/test_torch_predict.py --write-fixture``; record
+the JAX package's captions of new modes on the committed run dir, without
+retraining (every other key and ``best.pth`` stay as they are), with
+``PYTHONPATH=. python tests/test_torch_predict.py --record-modes MODE ...``.
 """
 
 import json
@@ -79,6 +82,8 @@ def make_tiny_run(root):
 # fits the tiny captioner's 24-word vocabulary
 MAGIC = ["--magic", "--magic_width", "5"]
 MODES = {"greedy": [], "q8": ["--q8"], "beam": ["--isbeam"], "beam_q8": ["--isbeam", "--q8"],
+         "beam_bf16_softmax": ["--isbeam", "--bf16_softmax"],
+         "beam_q8_bf16_softmax": ["--isbeam", "--q8", "--bf16_softmax"],
          "magic": MAGIC, "magic_beam": MAGIC + ["--isbeam"], "magic_q8": MAGIC + ["--q8"],
          "magic_q8_tower": MAGIC + ["--q8_tower"]}
 
@@ -284,13 +289,35 @@ def write_fixture():
     print(f"wrote {out}: {sorted(os.listdir(out))}")
 
 
+def record_modes(modes):
+    """Record the JAX ``predict_prompt``'s captions of ``modes`` on the
+    committed run dir into its ``expected.json``."""
+    import tempfile
+
+    expected = json.loads((FIXTURE_DIR / "expected.json").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in modes:
+            staged = stage_tiny_captioner(os.path.join(tmp, mode))
+            _jax_predict(staged["run_dir"], staged["test_bank"],
+                         _mode_flags(mode, staged["clap_ckpt"]))
+            expected[mode] = _captions(staged["run_dir"])
+    (FIXTURE_DIR / "expected.json").write_text(json.dumps(expected, indent=1, sort_keys=True))
+    print(f"recorded {modes} into {FIXTURE_DIR / 'expected.json'}")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--write-fixture"]:
+    if sys.argv[1:] == ["--write-fixture"] or sys.argv[1:2] == ["--record-modes"]:
         os.environ["JAX_PLATFORMS"] = "cpu"
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from test_torch_bert_ase import register_tiny_bert_in_jax
 
         register_tiny_bert_in_jax(lambda d, k, v: d.__setitem__(k, v))
-        write_fixture()
+        if sys.argv[1] == "--write-fixture":
+            write_fixture()
+        elif sys.argv[2:] and set(sys.argv[2:]) <= set(MODES):
+            record_modes(sys.argv[2:])
+        else:
+            sys.exit(f"--record-modes takes modes of {list(MODES)}")
     else:
-        sys.exit("usage: PYTHONPATH=. python tests/test_torch_predict.py --write-fixture")
+        sys.exit("usage: PYTHONPATH=. python tests/test_torch_predict.py --write-fixture | "
+                 "--record-modes MODE ...")

@@ -12,9 +12,9 @@ process (the port reads the same geometry from the config's
 """
 
 import csv
+import importlib.util
 import json
 import os
-import types
 import wave as wavemod
 
 import numpy as np
@@ -32,7 +32,7 @@ from zs_aac_tpu.models import htsat as jhtsat
 from zs_aac_tpu_torch import testdata
 from zs_aac_tpu_torch.eval import zero_shot as tzs
 from zs_aac_tpu_torch.models.convert import from_jax_params
-from zs_aac_tpu_torch.utils.checkpoints import load_params, save_train_state
+from zs_aac_tpu_torch.utils.checkpoints import load_params
 
 torch.set_num_threads(2)
 
@@ -122,9 +122,21 @@ def _tiny_jax_htsat(monkeypatch):
         "__annotations__": {k: type(v) for k, v in kw.items()}, **kw}))
 
 
+def _converter():
+    """``examples/convert_jax_state.py``, loaded from its file."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", "convert_jax_state.py")
+    spec = importlib.util.spec_from_file_location("convert_jax_state", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _checkpoints(tmp_path, config):
     """The same random weights as the JAX driver's orbax train state and as
-    the port's train state: (jax path, port path)."""
+    the port's train state made from it by ``examples/convert_jax_state.py``
+    (the state's optimizer is ``finetune``'s): (jax path, port path)."""
+    conv = _converter()
     from zs_aac_tpu.ops.logmel import LogMelConfig
     from zs_aac_tpu.train.contrastive import create_ase_state
     from zs_aac_tpu.train.optim import cosine_lr, get_optimizer
@@ -137,13 +149,12 @@ def _checkpoints(tmp_path, config):
                              spec_shape=(2, 101, mel.n_mels), text_len=30)
     jpath = str(tmp_path / "jax_state")
     jax_save(jpath, state)
-    variables = from_jax_params(jax.tree.map(np.asarray, {"params": state.params,
-                                                          "batch_stats": state.batch_stats}),
-                                device="cpu")
+    train_config = tmp_path / "train_config.json"
+    train_config.write_text(json.dumps({**config, "optim_args": {"lr": 1e-4}, "training": {
+        **config["training"], "epochs": 10, "warmup_epochs": 1}}))
     tpath = str(tmp_path / "best_model.ckpt")
-    save_train_state(tpath, types.SimpleNamespace(params=variables["params"],
-                                                  batch_stats=variables["batch_stats"],
-                                                  opt_state={}, step=0))
+    conv.main(["-c", str(train_config), "--orbax_dir", jpath, "--out", tpath,
+             "--driver", "finetune"])
     return jpath, tpath
 
 

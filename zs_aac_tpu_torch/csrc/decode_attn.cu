@@ -9,6 +9,13 @@
 // v-scales folded into the probabilities. Rows past `index` are never read:
 // the reference masks them to -1e9, which gives them an exact 0 weight.
 //
+// Two softmaxes, one instantiation each (the template flag kBf16Softmax): the
+// reference's fp32 softmax, and the beam search's opt-in bf16 softmax of
+// zs_aac_tpu/models/gpt2.py::gpt2_step_beam_q8 (lines 467-474, behind
+// --bf16_softmax): the scores rounded to bf16, e = bf16(expf(bf16(s - max))),
+// an fp32 sum of e, p = x.dtype(e) * x.dtype(1 / sum). The flag touches only
+// the softmax (section 3); the fp32 instantiation is built as before.
+//
 // Bound: bytes. A call must read (index+1) int8 rows of K and of V plus their
 // fp32 scales for every (b, h); it does ~2 flops per cache byte, far below the
 // card's ridge point. GPT-2 124M's decode at B = 256 gives 3072 (b, h) of
@@ -273,7 +280,7 @@ __device__ __forceinline__ float quantize_spread(const T* x, int d, int c, Piece
   return scale;
 }
 
-template <typename T, int kVec>
+template <typename T, int kVec, bool kBf16Softmax>
 __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks)
 decode_attn_q8_kernel(const T* __restrict__ q, const T* __restrict__ kn,
                       const T* __restrict__ vn, int64_t q_sb, int64_t k_sb,
@@ -363,19 +370,42 @@ decode_attn_q8_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   load_chunk(cvr, nullptr, 0, cur, csc);  // V's first chunk, in flight over the softmax
   __syncwarp();
 
-  // 3. fp32 softmax; v-scales folded into the probabilities.
-  float m = -INFINITY;
-  for (int t = lane; t < n; t += 32) m = fmaxf(m, strip[t]);
-  m = warp_max(m);
-  float s = 0.f;
-  for (int t = lane; t < n; t += 32) {
-    const float e = expf(strip[t] - m);
-    strip[t] = e;
-    s += e;
+  // 3. The softmax; v-scales folded into the probabilities.
+  if constexpr (kBf16Softmax) {
+    // Every step but the fp32 sum rounds to bf16, as the reference's bf16
+    // tensors do (the max of bf16 values is exact).
+    using bf16 = __nv_bfloat16;
+    float m = -INFINITY;
+    for (int t = lane; t < n; t += 32) {
+      const float x = round_t<bf16>(strip[t]);
+      strip[t] = x;
+      m = fmaxf(m, x);
+    }
+    m = warp_max(m);
+    float s = 0.f;
+    for (int t = lane; t < n; t += 32) {
+      const float e = round_t<bf16>(expf(round_t<bf16>(strip[t] - m)));
+      strip[t] = e;
+      s += e;
+    }
+    s = warp_sum(s);
+    const float r = round_t<T>(1.f / s);
+    for (int t = lane; t < n; t += 32)
+      strip[t] = round_t<T>(round_t<T>(strip[t] * r) * (t == index ? vs : svr[t]));
+  } else {
+    float m = -INFINITY;
+    for (int t = lane; t < n; t += 32) m = fmaxf(m, strip[t]);
+    m = warp_max(m);
+    float s = 0.f;
+    for (int t = lane; t < n; t += 32) {
+      const float e = expf(strip[t] - m);
+      strip[t] = e;
+      s += e;
+    }
+    s = warp_sum(s);
+    for (int t = lane; t < n; t += 32)
+      strip[t] = round_t<T>((strip[t] / s) * (t == index ? vs : svr[t]));
   }
-  s = warp_sum(s);
-  for (int t = lane; t < n; t += 32)
-    strip[t] = round_t<T>((strip[t] / s) * (t == index ? vs : svr[t]));
   __syncwarp();
 
   // 4. o = sum_t p_t * v8[t]: kVec channels a lane over its rows, then the
@@ -415,27 +445,27 @@ decode_attn_q8_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   }
 }
 
-template <typename T, int kVec>
+template <typename T, int kVec, bool kBf16Softmax>
 int launch(int warps, const void* q, const void* kn, const void* vn, long long q_sb,
            long long k_sb, long long v_sb, void* ck, void* cv, void* sk, void* sv, void* o,
            int B, int H, int T_len, int d, int index, float sqrt_d, cudaStream_t s) {
   const int BH = B * H;
   const dim3 grid((BH + warps - 1) / warps);
   const size_t smem = sizeof(float) * warps * (index + 1);
-  decode_attn_q8_kernel<T, kVec><<<grid, warps * 32, smem, s>>>(
+  decode_attn_q8_kernel<T, kVec, kBf16Softmax><<<grid, warps * 32, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn), static_cast<const T*>(vn), q_sb,
       k_sb, v_sb, static_cast<int8_t*>(ck), static_cast<int8_t*>(cv), static_cast<float*>(sk),
       static_cast<float*>(sv), static_cast<T*>(o), BH, H, T_len, d, index, sqrt_d);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kBf16Softmax>
 int launch_vec(int vec, int warps, const void* q, const void* kn, const void* vn,
                long long q_sb, long long k_sb, long long v_sb, void* ck, void* cv, void* sk,
                void* sv, void* o, int B, int H, int T_len, int d, int index, float sqrt_d,
                cudaStream_t s) {
 #define K1_LAUNCH(V)                                                                        \
-  return launch<T, V>(warps, q, kn, vn, q_sb, k_sb, v_sb, ck, cv, sk, sv, o, B, H, T_len, d, \
+  return launch<T, V, kBf16Softmax>(warps, q, kn, vn, q_sb, k_sb, v_sb, ck, cv, sk, sv, o, B, H, T_len, d, \
                       index, sqrt_d, s)
   switch (vec) {
     case 16: K1_LAUNCH(16);
@@ -448,25 +478,42 @@ int launch_vec(int vec, int warps, const void* q, const void* kn, const void* vn
 #undef K1_LAUNCH
 }
 
+template <bool kBf16Softmax>
+int launch_dtype(int dtype, int vec, int warps, const void* q, const void* kn, const void* vn,
+                 long long q_sb, long long k_sb, long long v_sb, void* ck, void* cv, void* sk,
+                 void* sv, void* o, int B, int H, int T_len, int d, int index, float sqrt_d,
+                 cudaStream_t s) {
+  if (dtype == 0)
+    return launch_vec<float, kBf16Softmax>(vec, warps, q, kn, vn, q_sb, k_sb, v_sb, ck, cv, sk,
+                                           sv, o, B, H, T_len, d, index, sqrt_d, s);
+  if (dtype == 1)
+    return launch_vec<__nv_bfloat16, kBf16Softmax>(vec, warps, q, kn, vn, q_sb, k_sb, v_sb, ck,
+                                                   cv, sk, sv, o, B, H, T_len, d, index, sqrt_d,
+                                                   s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and o). vec: int8 values
-// a lane reads of a cache row (16, 8, 4, 2 or 1, dividing d, d / vec <= 32);
-// warps: (b, h) a block (decode_attn_plan). Returns the launch's
-// cudaGetLastError() as an int (0 = success).
-extern "C" int decode_attn_q8(int dtype, int vec, int warps, const void* q, const void* kn,
-                              const void* vn, long long q_sb, long long k_sb, long long v_sb,
-                              void* ck, void* cv, void* sk, void* sv, void* o, int B, int H,
-                              int T_len, int d, int index, float sqrt_d, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and o). softmax: 0 =
+// fp32, 1 = the bf16 softmax. vec: int8 values a lane reads of a cache row
+// (16, 8, 4, 2 or 1, dividing d, d / vec <= 32); warps: (b, h) a block
+// (decode_attn_plan). Returns the launch's cudaGetLastError() as an int
+// (0 = success).
+extern "C" int decode_attn_q8(int dtype, int softmax, int vec, int warps, const void* q,
+                              const void* kn, const void* vn, long long q_sb, long long k_sb,
+                              long long v_sb, void* ck, void* cv, void* sk, void* sv, void* o,
+                              int B, int H, int T_len, int d, int index, float sqrt_d,
+                              void* stream) {
   if (vec <= 0 || d % vec || d / vec > 32 || warps < 1 || warps > kMaxWarps || B <= 0 ||
       H <= 0 || index < 0 || index >= T_len)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_vec<float>(vec, warps, q, kn, vn, q_sb, k_sb, v_sb, ck, cv, sk, sv, o, B, H,
-                             T_len, d, index, sqrt_d, s);
-  if (dtype == 1)
-    return launch_vec<__nv_bfloat16>(vec, warps, q, kn, vn, q_sb, k_sb, v_sb, ck, cv, sk, sv, o,
-                                     B, H, T_len, d, index, sqrt_d, s);
+  if (softmax == 0)
+    return launch_dtype<false>(dtype, vec, warps, q, kn, vn, q_sb, k_sb, v_sb, ck, cv, sk, sv, o,
+                               B, H, T_len, d, index, sqrt_d, s);
+  if (softmax == 1)
+    return launch_dtype<true>(dtype, vec, warps, q, kn, vn, q_sb, k_sb, v_sb, ck, cv, sk, sv, o,
+                              B, H, T_len, d, index, sqrt_d, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,6 +21,11 @@ attention is kernel K1) at B * K rows, and after each selection
 positions. This replaces the JAX package's ancestry table, head-folded
 cache and grouped lm head (TPU layout choices): each logical beam attends
 over its own history there too, the other rows getting an exact 0 weight.
+``fast_softmax=True`` (opt-in, as in the JAX package, behind
+``predict_prompt --bf16_softmax``) runs each layer's attention softmax in
+bf16 (``gpt2_step``'s and K1's ``softmax_dtype=torch.bfloat16``); the
+candidate selection stays fp32.
+
 The loop runs on the host and leaves early once every beam has stopped,
 checking every ``CHECK_EVERY`` steps; a step after that re-selects each
 beam's token 0 in the same order, so the outputs do not change.
@@ -49,6 +54,10 @@ __all__ = ["beam_search", "beam_search_batched", "beam_search_batched_q8"]
 
 _NEG_INF = -1e9
 _DIRECT_MAX_VOCAB = 4096  # larger vocabularies take the affine ranking form
+
+
+def _softmax_dtype(fast_softmax: bool):
+    return torch.bfloat16 if fast_softmax else torch.float32
 
 
 def _topk_argmax(x: torch.Tensor, k: int):
@@ -137,43 +146,50 @@ def _beam(params, prefix_embeds, K, entry_length, stop_token_id, temperature,
 
 def beam_search_batched(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
                         beam_size: int = 5, entry_length: int = 67,
-                        stop_token_id: int = 13, temperature: float = 1.0, tp=None):
+                        stop_token_id: int = 13, temperature: float = 1.0,
+                        fast_softmax: bool = False, tp=None):
     """Beam search over a clip batch ``prefix_embeds`` [B, Lp, D]. Returns
     (tokens [B, beam, entry_length] int64, seq_lengths [B, beam] int64,
     scores [B, beam] fp32 length-normalised), each clip's beams in
-    descending score order. Under ``tp`` ``params`` is this rank's shard
+    descending score order. ``fast_softmax``: the attention softmax in bf16
+    (module docstring). Under ``tp`` ``params`` is this rank's shard
     (``parallel.tp.shard_gpt2_params``); the logits are gathered whole
     before the scoring."""
     B, Lp, _ = prefix_embeds.shape
     cache = init_kv_cache(cfg, B, Lp + entry_length, prefix_embeds.dtype,
                           prefix_embeds.device, tp)
+    smax = _softmax_dtype(fast_softmax)
     return _beam(params, prefix_embeds, beam_size, entry_length, stop_token_id,
                  temperature, cache,
                  lambda e, c: gpt2_prefill(params, cfg, e, c, tp=tp),
-                 lambda x, c, idx: gpt2_step(params, cfg, x, c, idx, tp=tp), tp)
+                 lambda x, c, idx: gpt2_step(params, cfg, x, c, idx, tp=tp, softmax_dtype=smax),
+                 tp)
 
 
 def beam_search_batched_q8(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
                            beam_size: int = 5, entry_length: int = 67,
                            stop_token_id: int = 13, temperature: float = 1.0,
-                           attention=decode_attn_q8):
+                           fast_softmax: bool = False, attention=decode_attn_q8):
     """``beam_search_batched`` over the int8 KV cache, each layer's attention
     through kernel K1 at B * beam rows (``attention=decode_attn_q8_plain``
-    runs the plain version). ``params`` may be float or quantized
+    runs the plain version; ``fast_softmax`` K1's bf16-softmax
+    instantiation). ``params`` may be float or quantized
     (``quantize_gpt2_int8``)."""
     B, Lp, _ = prefix_embeds.shape
     cache = init_kv_cache_q8(cfg, B, Lp + entry_length, prefix_embeds.device)
+    smax = _softmax_dtype(fast_softmax)
     return _beam(params, prefix_embeds, beam_size, entry_length, stop_token_id,
                  temperature, cache,
                  lambda e, c: gpt2_prefill_q8(params, cfg, e, c),
-                 lambda x, c, idx: gpt2_step_q8(params, cfg, x, c, idx, attention))
+                 lambda x, c, idx: gpt2_step_q8(params, cfg, x, c, idx, attention, smax))
 
 
 def beam_search(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
                 beam_size: int = 5, entry_length: int = 67, stop_token_id: int = 13,
-                temperature: float = 1.0):
+                temperature: float = 1.0, fast_softmax: bool = False):
     """One clip (``prefix_embeds`` [1, Lp, D]): (tokens [beam, entry_length],
     seq_lengths [beam], scores [beam])."""
     tokens, seq_lengths, scores = beam_search_batched(
-        params, cfg, prefix_embeds, beam_size, entry_length, stop_token_id, temperature)
+        params, cfg, prefix_embeds, beam_size, entry_length, stop_token_id, temperature,
+        fast_softmax)
     return tokens[0], seq_lengths[0], scores[0]

@@ -30,7 +30,9 @@ the lower class id. Where the port differs:
   config's tower.
 - ``--ckpt`` is read by ``utils.checkpoints.load_ase_variables``: a train
   state of the port's training drivers or a reference-layout ``.pt``
-  checkpoint (the JAX package's orbax train states are not read). The
+  checkpoint; a JAX-package orbax train state is converted first by
+  ``examples/convert_jax_state.py`` (a directory raises an error naming
+  it). The
   weights are cast to bf16 where the config's ``compute_dtype`` is
   ``bfloat16``, as ``build_ase_from_config`` builds the model.
 

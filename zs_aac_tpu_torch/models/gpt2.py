@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8
+from zs_aac_tpu_torch.ops.decode_attn import bf16_softmax, decode_attn_q8
 from zs_aac_tpu_torch.ops.quant import div, quant_act, quantize_vec
 from zs_aac_tpu_torch.parallel.mesh import tp_copy, tp_gather, tp_reduce
 from zs_aac_tpu_torch.parallel.tp import embed_lookup
@@ -256,12 +256,15 @@ def gpt2_prefill(params, cfg: GPT2Config, inputs_embeds, cache, return_hidden=Fa
 
 
 def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int, return_hidden=False,
-              tp=None):
+              tp=None, softmax_dtype=torch.float32):
     """One cached decode step for the token at position ``index``.
 
     ``x_embed``: [B, D]. Writes the token's k/v into the cache in place and
     returns (logits [B, vocab] fp32, cache), plus the post-``ln_f`` hidden
-    state [B, D] when ``return_hidden``."""
+    state [B, D] when ``return_hidden``. ``softmax_dtype=torch.bfloat16`` is
+    the beam search's opt-in bf16 attention softmax (the JAX
+    ``gpt2_step_beam`` branch, its query scaled by 1 / sqrt(d) before the
+    product as there; ``ops.decode_attn.bf16_softmax``)."""
     x = (x_embed + params["wpe"][index])[:, None]
     d = cfg.n_embd // cfg.n_head
     H = _heads(cfg, tp)
@@ -273,8 +276,13 @@ def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int, return_hidden
         ck, cv = cache["k"][i], cache["v"][i]
         ck[:, :, index] = k[:, :, 0]
         cv[:, :, index] = v[:, :, 0]
-        att = div(q @ ck[:, :, :n].to(x.dtype).transpose(-1, -2), math.sqrt(d))
-        att = torch.softmax(att.float(), dim=-1).to(x.dtype)
+        keys = ck[:, :, :n].to(x.dtype).transpose(-1, -2)
+        if softmax_dtype == torch.float32:
+            att = torch.softmax(div(q @ keys, math.sqrt(d)).float(), dim=-1).to(x.dtype)
+        elif softmax_dtype == torch.bfloat16:
+            att = bf16_softmax((q * float(1.0 / math.sqrt(d))) @ keys, x.dtype)
+        else:
+            raise TypeError(f"gpt2_step: unsupported softmax dtype {softmax_dtype}")
         o = att @ cv[:, :, :n].to(x.dtype)
         x = x + _row(_merge_heads(o), blk["attn"]["c_proj"], tp)
         x = _mlp_residual(blk, cfg, x, tp)
@@ -535,11 +543,12 @@ def gpt2_prefill_q8(params, cfg: GPT2Config, inputs_embeds, cache):
 
 
 def gpt2_step_q8(params, cfg: GPT2Config, x_embed, cache, index: int,
-                 attention=decode_attn_q8):
+                 attention=decode_attn_q8, softmax_dtype=torch.float32):
     """One decode step over the int8 cache. Each layer's attention is one
     call of ``attention`` (kernel K1 by default; ``decode_attn_q8_plain``
-    runs the plain version), which also commits the token's quantized k/v
-    row and scales at ``index``. Returns (logits [B, vocab] fp32, cache)."""
+    runs the plain version) with the softmax in ``softmax_dtype``, which
+    also commits the token's quantized k/v row and scales at ``index``.
+    Returns (logits [B, vocab] fp32, cache)."""
     B, C = x_embed.shape
     H = cfg.n_head
     x = (x_embed + params["wpe"][index])[:, None]
@@ -548,7 +557,7 @@ def gpt2_step_q8(params, cfg: GPT2Config, x_embed, cache, index: int,
         qkv = _mm(h, blk["attn"]["c_attn"])[:, 0]                 # [B, 3C]
         q, k, v = (t.view(B, H, C // H) for t in qkv.split(C, dim=-1))
         o = attention(q, k, v, cache["k"][i], cache["v"][i],
-                      cache["k_scale"][i], cache["v_scale"][i], index)
+                      cache["k_scale"][i], cache["v_scale"][i], index, softmax_dtype)
         x = x + _mm(o.reshape(B, 1, C), blk["attn"]["c_proj"])
         x = _mlp_residual(blk, cfg, x)
     x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)

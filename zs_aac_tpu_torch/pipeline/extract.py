@@ -13,8 +13,9 @@ attention) in the last stage, the TPU dispatch. Without a checkpoint the
 weights are seeded random ones; a checkpoint is either a train state that the
 port's ``pretrain`` or ``finetune`` driver wrote (``best_model.ckpt``) or a
 reference-layout ``.pt`` file, both read with ``torch.load(weights_only=True)``
-(``utils.checkpoints.load_ase_variables``). Orbax train-state checkpoints of
-the JAX package are not read yet.
+(``utils.checkpoints.load_ase_variables``). An orbax train-state directory of
+the JAX package is converted first by ``examples/convert_jax_state.py``; a
+directory raises a ``ValueError`` naming it.
 
 Run (``--config`` is read by ``utils.config.load_config``, the YAML subset of
 the repo's configs, or JSON; the CSV corpora by the ``csv`` module):
@@ -68,10 +69,6 @@ def load_ase_encoders(config: dict, ckpt: Optional[str] = None, device="cuda"):
     ase, cfg = build_ase_from_config(config, device=dev)
     mel_cfg = LogMelConfig.from_dict(config["audio_args"])
     path = ckpt or config.get("pretrain_path")
-    if path and os.path.isdir(path):
-        raise NotImplementedError(f"{path}: orbax train-state checkpoints are read by a "
-                                  "later slice; pass a train state of the port's drivers or "
-                                  "a reference-layout .pt checkpoint")
     if path and os.path.exists(path):
         variables = load_ase_variables(path, cfg, device=dev)
     else:

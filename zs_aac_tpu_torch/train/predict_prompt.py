@@ -9,7 +9,10 @@ a, b, c in this audio."):
 
 - greedy, up to 256 clips a chunk, and beam search (``--isbeam``, up to 64,
   ``--beam_size`` beams, the best one kept): float weights, or ``--q8`` for
-  w8a8 weights + the int8 KV cache through kernel K1;
+  w8a8 weights + the int8 KV cache through kernel K1; ``--bf16_softmax``
+  runs the beam's attention softmax in bf16 (K1's bf16-softmax
+  instantiation with ``--q8``), greedy and MAGIC ignore it, as in the JAX
+  CLI;
 - MAGIC (``--magic``, CLAP-guided, up to 64 clips a chunk; with ``--isbeam``
   beam MAGIC, up to 32, the best beam kept): each clip's CLAP audio
   embedding is its bank prefix, the text tower is ``--clap_ckpt``'s
@@ -37,8 +40,6 @@ import numpy as np
 import torch
 
 __all__ = ["build_parser", "main"]
-
-_LATER = "is ported in a later slice of the PyTorch port (see ROADMAP.md)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -87,8 +88,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     with open(os.path.join(args.test_dir, "params.json")) as f:
         saved = json.load(f)
-    if args.bf16_softmax:
-        raise NotImplementedError(f"--bf16_softmax (bf16 beam attention softmax) {_LATER}")
 
     tokenizer, stop_id = _make_tokenizer(args.tokenizer or saved.get("tokenizer"),
                                          saved["data"])
@@ -165,7 +164,8 @@ def main(argv=None):
             else:
                 if args.isbeam:
                     toks, lens, beam_scores = decode_beam(gpt2_serving, ccfg.gpt2, emb,
-                                                          args.beam_size, 67, stop_id, 1.0)
+                                                          args.beam_size, 67, stop_id, 1.0,
+                                                          args.bf16_softmax)
                     best = beam_scores.argmax(dim=1)   # the first of equal scores, as np.argmax
                     rows = torch.arange(len(padded), device=best.device)
                     toks, lens = toks[rows, best], lens[rows, best]

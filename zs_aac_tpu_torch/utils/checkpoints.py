@@ -8,8 +8,12 @@ dicts and tuples, read back with ``weights_only=True``), with the JAX
 package's semantics: a full restore resumes params, optimizer and step; a
 model-only restore warm-starts params and batch statistics and keeps the
 fresh optimizer (the reference's ``pretrain_path`` load). The JAX package's
-orbax train-state directories are not read. ``load_ase_variables`` reads an
-ASE for inference from a train state or from a reference-layout checkpoint.
+orbax train-state directories are not read here (orbax's reader needs
+tensorstore): ``examples/convert_jax_state.py``, run where the JAX package
+runs, converts one into this format, and every reader here given a
+directory raises a ``ValueError`` naming that command. ``load_ase_variables``
+reads an ASE for inference from a train state or from a reference-layout
+checkpoint.
 
 The JAX package's ``best.pth`` / ``last.pth`` parameter snapshots (flax
 ``serialization.to_bytes``: msgpack) are read and written without flax or
@@ -79,6 +83,11 @@ def save_train_state(path: str, state) -> None:
 
 
 def _load(path: str):
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory: a JAX-package orbax train state, which the "
+                         "port does not read. Convert it where the JAX package runs: python "
+                         f"examples/convert_jax_state.py -c CONFIG.yaml --orbax_dir {path} "
+                         "--out FILE, and pass FILE")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
