@@ -353,6 +353,17 @@ def graph_ms(fn, reps, replays=3):
     return start.elapsed_time(end) / (replays * reps)
 
 
+def on_device(e) -> bool:
+    """Whether a key average ``e`` is device work: a device record that is
+    not the device-side mirror of one of the port's spans
+    (``utils/profiling.py::SPANS``), which covers the kernels it encloses."""
+    import torch
+
+    from zs_aac_tpu_torch.utils.profiling import SPANS
+
+    return e.device_type != torch.autograd.DeviceType.CPU and e.key not in SPANS
+
+
 def profiled(fn):
     """``fn()`` once under torch.profiler: (its result, the host's wall ms,
     the device's busy ms, the key averages). A token kernel opens the window
@@ -374,8 +385,7 @@ def profiled(fn):
     events = prof.key_averages()
     # the kernels' own events (CPU-side ops also carry the device time of
     # the kernels they enclose)
-    dev_ms = sum(e.self_device_time_total for e in events
-                 if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+    dev_ms = sum(e.self_device_time_total for e in events if on_device(e)) / 1e3
     return out, wall, dev_ms, events
 
 
@@ -387,6 +397,8 @@ def profiled_kernels(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from zs_aac_tpu_torch.utils.profiling import SPANS
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.zeros(1, device="cuda")
         t0 = time.perf_counter()
@@ -395,7 +407,7 @@ def profiled_kernels(fn):
         wall = (time.perf_counter() - t0) * 1e3
     kernels = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CPU:
+        if e.device_type() != torch.autograd.DeviceType.CPU and e.name() not in SPANS:
             k = kernels.setdefault(e.name(), [0.0, 0])
             k[0] += e.duration_ns() / 1e6
             k[1] += 1
@@ -2271,12 +2283,10 @@ def _device_time_by_op(events):
     """{category: device ms} of profiled key averages: the convolutions
     (cuDNN's kernels), K2, the matrix products (the projection), and the
     rest (BatchNorm, ReLU, pooling, casts and other elementwise work)."""
-    import torch
-
     cats = {"convolutions": 0.0, "K2": 0.0, "matmul": 0.0, "BN + elementwise": 0.0}
     k2_names = ("frames::kernel<", "radix2::kernel")
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CPU or not e.self_device_time_total:
+        if not on_device(e) or not e.self_device_time_total:
             continue
         k, ms = e.key, e.self_device_time_total / 1e3
         if any(n in k for n in k2_names):
@@ -3461,7 +3471,7 @@ def _tower_train_step():
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type != torch.autograd.DeviceType.CPU) / 1e3
+                     if on_device(e)) / 1e3
     print(f"[tower-train] HTSAT + gpt2 tower (12 x 768, 124M parameters in the tower), bf16, "
           f"B={B} 10 s clips + {L} tokens: losses {losses}; launches per step {per_step} "
           f"(expected K2 1, K5 2, K6 2, K7 10, K8 10, K9 10); gradients of {len(grads)} leaves "

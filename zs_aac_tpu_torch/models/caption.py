@@ -24,6 +24,7 @@ from zs_aac_tpu_torch.models.mapper import MLP, init_mapper_, make_mapper
 from zs_aac_tpu_torch.ops.quant import div
 from zs_aac_tpu_torch.parallel.mesh import all_sum
 from zs_aac_tpu_torch.utils.device import resolve_device
+from zs_aac_tpu_torch.utils.profiling import annotate
 
 __all__ = ["CaptionConfig", "sound_effect_choice", "init_caption_model", "prefix_projections",
            "caption_embeddings", "caption_train_logits", "caption_loss", "trainable_filter",
@@ -92,17 +93,19 @@ def caption_embeddings(params: dict, cfg: CaptionConfig, prefix: torch.Tensor,
     """Assemble GPT input embeddings [sound | hard | soft_prefix | text] from
     ``prefix`` [B, prefix_size], optional token ids [B, S] and, for the
     sound-effect tokens, the label bank ``label_embeddings`` [N, E]. ``tp``:
-    the ``model`` axis, GPT-2 this rank's shard (``parallel.tp``)."""
-    parts = []
-    if cfg.sound_effect_num and label_embeddings is not None:
-        idx = sound_effect_choice(prefix, label_embeddings, cfg.sound_effect_num)
-        parts.append(params["sound_effect"](label_embeddings[idx]))
-    if hard_prompt_tokens is not None and not cfg.only_soft_prompt:
-        parts.append(gpt2_embed(params["gpt2"], hard_prompt_tokens, tp))
-    parts.append(prefix_projections(params, cfg, prefix))
-    if text_tokens is not None:
-        parts.append(gpt2_embed(params["gpt2"], text_tokens, tp))
-    return torch.cat(parts, dim=1)
+    the ``model`` axis, GPT-2 this rank's shard (``parallel.tp``). Span
+    ``decode.mapper``."""
+    with annotate("decode.mapper"):
+        parts = []
+        if cfg.sound_effect_num and label_embeddings is not None:
+            idx = sound_effect_choice(prefix, label_embeddings, cfg.sound_effect_num)
+            parts.append(params["sound_effect"](label_embeddings[idx]))
+        if hard_prompt_tokens is not None and not cfg.only_soft_prompt:
+            parts.append(gpt2_embed(params["gpt2"], hard_prompt_tokens, tp))
+        parts.append(prefix_projections(params, cfg, prefix))
+        if text_tokens is not None:
+            parts.append(gpt2_embed(params["gpt2"], text_tokens, tp))
+        return torch.cat(parts, dim=1)
 
 
 def caption_train_logits(params: dict, cfg: CaptionConfig, tokens: torch.Tensor,

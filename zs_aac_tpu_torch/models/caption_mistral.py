@@ -21,6 +21,7 @@ from zs_aac_tpu_torch.models.mistral import (MistralConfig, init_lora, init_mist
                                              mistral_embed, mistral_forward)
 from zs_aac_tpu_torch.parallel.mesh import all_sum
 from zs_aac_tpu_torch.utils.device import resolve_device
+from zs_aac_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "MistralCaptionConfig",
@@ -64,16 +65,18 @@ def init_mistral_caption(cfg: MistralCaptionConfig, seed: int = 0, device="cuda"
 def mistral_caption_embeddings(params, cfg: MistralCaptionConfig, prefix,
                                hard_prompt_tokens=None, text_tokens=None, tp=None):
     """[hard prompt | mapper prefix | text] embeddings in the base's dtype
-    (``tp``: the ``model`` axis, with the base and LoRA this rank's shards)."""
-    proj = params["mapper"](prefix).reshape(-1, cfg.prefix_length, cfg.mistral.hidden_size)
-    proj = proj.to(params["mistral"]["embed"].dtype)
-    parts = []
-    if hard_prompt_tokens is not None and not cfg.only_soft_prompt:
-        parts.append(mistral_embed(params["mistral"], hard_prompt_tokens, tp))
-    parts.append(proj)
-    if text_tokens is not None:
-        parts.append(mistral_embed(params["mistral"], text_tokens, tp))
-    return torch.cat(parts, dim=1)
+    (``tp``: the ``model`` axis, with the base and LoRA this rank's shards).
+    Span ``decode.mapper``."""
+    with annotate("decode.mapper"):
+        proj = params["mapper"](prefix).reshape(-1, cfg.prefix_length, cfg.mistral.hidden_size)
+        proj = proj.to(params["mistral"]["embed"].dtype)
+        parts = []
+        if hard_prompt_tokens is not None and not cfg.only_soft_prompt:
+            parts.append(mistral_embed(params["mistral"], hard_prompt_tokens, tp))
+        parts.append(proj)
+        if text_tokens is not None:
+            parts.append(mistral_embed(params["mistral"], text_tokens, tp))
+        return torch.cat(parts, dim=1)
 
 
 def mistral_caption_train_logits(params, cfg: MistralCaptionConfig, tokens, prefix, mask,

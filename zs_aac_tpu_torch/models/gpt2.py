@@ -49,6 +49,7 @@ from zs_aac_tpu_torch.ops.quant import div, quant_act, quantize_vec
 from zs_aac_tpu_torch.parallel.mesh import tp_copy, tp_gather, tp_reduce
 from zs_aac_tpu_torch.parallel.tp import embed_lookup
 from zs_aac_tpu_torch.utils.device import resolve_device
+from zs_aac_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "GPT2Config",
@@ -85,16 +86,18 @@ class GPT2Config:
 
 def _gelu_new(x):
     c = math.sqrt(2.0 / math.pi)
-    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x))))
+    with annotate("layer.act"):
+        return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x))))
 
 
 def _ln(x, p, eps):
     """LayerNorm with fp32 statistics; output in the input dtype."""
-    xf = x.float()
-    xc = xf - xf.mean(dim=-1, keepdim=True)
-    var = xc.square().mean(dim=-1, keepdim=True)
-    y = xc * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+    with annotate("layer.norm"):
+        xf = x.float()
+        xc = xf - xf.mean(dim=-1, keepdim=True)
+        var = xc.square().mean(dim=-1, keepdim=True)
+        y = xc * torch.rsqrt(var + eps)
+        return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
 def _int_mm(a, b):
@@ -107,26 +110,30 @@ def _int_mm(a, b):
     return torch._int_mm(a, b)
 
 
-def _int8_dot(x, w, w_scale, out_dtype, w_contract_dim=0):
+def _int8_dot(x, w, w_scale, out_dtype, w_contract_dim=0, bias=None):
     """W8A8: per-row int8 activations, an int8 x int8 GEMM with int32
-    accumulation, the fp32 rescale, then the activation dtype."""
+    accumulation, the fp32 rescale, then the activation dtype, then
+    ``bias`` if given (spans ``layer.quant`` and ``layer.rescale``)."""
     xq, sx = quant_act(x)
     b = w if w_contract_dim == 0 else w.t()
     y = _int_mm(xq.reshape(-1, xq.shape[-1]), b).reshape(*xq.shape[:-1], -1)
-    return (y.float() * sx * w_scale).to(out_dtype)
+    with annotate("layer.rescale"):
+        y = (y.float() * sx * w_scale).to(out_dtype)
+        return y if bias is None else y + bias
 
 
 def _mm(x, p):
     """x @ w + b for the float, w8 ({"w" int8, "scale"}) and w8a8
-    ({"w" int8, "scale_a8"}) layouts."""
+    ({"w" int8, "scale_a8"}) layouts; the bias add is span ``layer.rescale``."""
     w = p["w"]
     if "scale_a8" in p:
-        y = _int8_dot(x, w, p["scale_a8"], x.dtype)
-    elif w.dtype == torch.int8:
+        return _int8_dot(x, w, p["scale_a8"], x.dtype, bias=p["b"])
+    if w.dtype == torch.int8:
         y = (x @ w.to(x.dtype)) * p["scale"].to(x.dtype)
     else:
         y = x @ w
-    return y + p["b"]
+    with annotate("layer.rescale"):
+        return y + p["b"]
 
 
 def _row(x, p, tp):
@@ -273,21 +280,23 @@ def gpt2_step(params, cfg: GPT2Config, x_embed, cache, index: int, return_hidden
         h = _ln(x, blk["ln_1"], cfg.layer_norm_epsilon)
         q, k, v = _mm(tp_copy(h, tp), blk["attn"]["c_attn"]).split(H * d, dim=-1)
         q, k, v = (_split_heads(t, H) for t in (q, k, v))  # [B,H,1,d]
-        ck, cv = cache["k"][i], cache["v"][i]
-        ck[:, :, index] = k[:, :, 0]
-        cv[:, :, index] = v[:, :, 0]
-        keys = ck[:, :, :n].to(x.dtype).transpose(-1, -2)
-        if softmax_dtype == torch.float32:
-            att = torch.softmax(div(q @ keys, math.sqrt(d)).float(), dim=-1).to(x.dtype)
-        elif softmax_dtype == torch.bfloat16:
-            att = bf16_softmax((q * float(1.0 / math.sqrt(d))) @ keys, x.dtype)
-        else:
-            raise TypeError(f"gpt2_step: unsupported softmax dtype {softmax_dtype}")
-        o = att @ cv[:, :, :n].to(x.dtype)
+        with annotate("layer.attn"):
+            ck, cv = cache["k"][i], cache["v"][i]
+            ck[:, :, index] = k[:, :, 0]
+            cv[:, :, index] = v[:, :, 0]
+            keys = ck[:, :, :n].to(x.dtype).transpose(-1, -2)
+            if softmax_dtype == torch.float32:
+                att = torch.softmax(div(q @ keys, math.sqrt(d)).float(), dim=-1).to(x.dtype)
+            elif softmax_dtype == torch.bfloat16:
+                att = bf16_softmax((q * float(1.0 / math.sqrt(d))) @ keys, x.dtype)
+            else:
+                raise TypeError(f"gpt2_step: unsupported softmax dtype {softmax_dtype}")
+            o = att @ cv[:, :, :n].to(x.dtype)
         x = x + _row(_merge_heads(o), blk["attn"]["c_proj"], tp)
         x = _mlp_residual(blk, cfg, x, tp)
-    x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
-    logits = _logits(x, params, cfg, tp)[:, 0].float()
+    with annotate("decode.logits"):
+        x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
+        logits = _logits(x, params, cfg, tp)[:, 0].float()
     if return_hidden:
         return logits, cache, x[:, 0]
     return logits, cache
@@ -547,8 +556,9 @@ def gpt2_step_q8(params, cfg: GPT2Config, x_embed, cache, index: int,
     """One decode step over the int8 cache. Each layer's attention is one
     call of ``attention`` (kernel K1 by default; ``decode_attn_q8_plain``
     runs the plain version) with the softmax in ``softmax_dtype``, which
-    also commits the token's quantized k/v row and scales at ``index``.
-    Returns (logits [B, vocab] fp32, cache)."""
+    also commits the token's quantized k/v row and scales at ``index``
+    (span ``layer.attn``; the final norm and the LM head are span
+    ``decode.logits``). Returns (logits [B, vocab] fp32, cache)."""
     B, C = x_embed.shape
     H = cfg.n_head
     x = (x_embed + params["wpe"][index])[:, None]
@@ -556,12 +566,14 @@ def gpt2_step_q8(params, cfg: GPT2Config, x_embed, cache, index: int,
         h = _ln(x, blk["ln_1"], cfg.layer_norm_epsilon)
         qkv = _mm(h, blk["attn"]["c_attn"])[:, 0]                 # [B, 3C]
         q, k, v = (t.view(B, H, C // H) for t in qkv.split(C, dim=-1))
-        o = attention(q, k, v, cache["k"][i], cache["v"][i],
-                      cache["k_scale"][i], cache["v_scale"][i], index, softmax_dtype)
+        with annotate("layer.attn"):
+            o = attention(q, k, v, cache["k"][i], cache["v"][i],
+                          cache["k_scale"][i], cache["v_scale"][i], index, softmax_dtype)
         x = x + _mm(o.reshape(B, 1, C), blk["attn"]["c_proj"])
         x = _mlp_residual(blk, cfg, x)
-    x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
-    return _logits(x, params)[:, 0].float(), cache
+    with annotate("decode.logits"):
+        x = _ln(x, params["ln_f"], cfg.layer_norm_epsilon)
+        return _logits(x, params)[:, 0].float(), cache
 
 
 # ---------------------------------------------------------------------------

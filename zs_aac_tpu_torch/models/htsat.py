@@ -49,6 +49,7 @@ from zs_aac_tpu_torch.ops.window_attn import (_window_partition, _window_reverse
                                               fused_swin_block_train, fused_window_attention,
                                               window_attention_plain)
 from zs_aac_tpu_torch.utils.device import resolve_device
+from zs_aac_tpu_torch.utils.profiling import annotate
 
 __all__ = ["HTSAT", "bicubic_resize_matrix", "drop_path_scale"]
 
@@ -342,7 +343,8 @@ class HTSAT:
         global batch and sliced."""
         p, st = variables["params"], variables["batch_stats"]
         dt = self.dtype
-        x, new_stats = self._bn0(p["bn0"], st["bn0"], spec, train, data)
+        with annotate("encode.frontend"):
+            x, new_stats = self._bn0(p["bn0"], st["bn0"], spec, train, data)
         keeps = [None] * sum(self.depths)
         if train:
             needs_draws = self.spec_augmentation or self.drop_path_rate > 0
@@ -353,7 +355,8 @@ class HTSAT:
                 x = spec_augment(x, generator, data=data)
             if self.drop_path_rate > 0:
                 keeps = self._keep_scales(generator, x.shape[0], x.device, data)
-        x = self._reshape_wav2img(x)                               # [B, S, S] fp32
+        with annotate("encode.frontend"):
+            x = self._reshape_wav2img(x)                           # [B, S, S] fp32
         B, S, _ = x.shape
         ps, stride = self.patch_size, self.patch_stride
         if ps != stride:

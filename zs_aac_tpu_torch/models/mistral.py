@@ -64,6 +64,7 @@ from zs_aac_tpu_torch.ops.quant import div, quantize_vec
 from zs_aac_tpu_torch.parallel.mesh import tp_copy, tp_gather, tp_reduce
 from zs_aac_tpu_torch.parallel.tp import embed_lookup
 from zs_aac_tpu_torch.utils.device import resolve_device
+from zs_aac_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "MistralConfig",
@@ -100,8 +101,9 @@ class MistralConfig:
 
 
 def _rms_norm(x, w, eps):
-    var = x.float().square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps)).to(x.dtype) * w
+    with annotate("layer.norm"):
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        return (x * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,13 +144,14 @@ def _base_matmul(x, w):
 def _lora_delta(x, lora: Dict, scale, tp=None, row=False):
     """``(x @ a) @ b * scale``. Under ``tp`` the factor that stays whole (a
     at a column-parallel site, b at a row-parallel one) passes through f, so
-    its gradient sums the group's partial ones."""
-    a, b = lora["a"].to(x.dtype), lora["b"].to(x.dtype)
-    if row:
-        b = tp_copy(b, tp)
-    else:
-        a = tp_copy(a, tp)
-    return ((x @ a) @ b) * scale
+    its gradient sums the group's partial ones. Span ``layer.lora``."""
+    with annotate("layer.lora"):
+        a, b = lora["a"].to(x.dtype), lora["b"].to(x.dtype)
+        if row:
+            b = tp_copy(b, tp)
+        else:
+            a = tp_copy(a, tp)
+        return ((x @ a) @ b) * scale
 
 
 def _lora_matmul(x, w, lora: Optional[Dict], scale, tp=None, row=False):
@@ -214,7 +217,9 @@ def _mlp(p, x, lora, scale, tp=None):
         x = tp_copy(x, tp)
         g = _lora_matmul(x, p["gate"], _site(lora, "gate"), scale, tp)
         u = _lora_matmul(x, p["up"], _site(lora, "up"), scale, tp)
-    return _lora_matmul(F.silu(g) * u, p["down"], _site(lora, "down"), scale, tp, row=True)
+    with annotate("layer.act"):
+        h = F.silu(g) * u
+    return _lora_matmul(h, p["down"], _site(lora, "down"), scale, tp, row=True)
 
 
 def _head(params, cfg: MistralConfig, x, lora, scale, tp=None):
@@ -424,7 +429,9 @@ def mistral_step(params, cfg: MistralConfig, x_embed, cache, index: int, lora=No
     """One cached decode step for the token at position ``index``.
     ``x_embed``: [B, D]. Writes its K/V into row ``index`` of the cache in
     place; GQA is grouped (each kv head serves its ``H / KV`` query heads
-    without a copy of the cache). Returns (logits [B, vocab], cache)."""
+    without a copy of the cache). Returns (logits [B, vocab], cache).
+    Spans: ``layer.attn`` from RoPE to the attention's output (before
+    ``wo``), ``decode.logits`` over ``_head``."""
     B, D = x_embed.shape
     H, KV, d = _local(cfg.n_heads, tp), _local(cfg.n_kv_heads, tp), cfg.head_dim
     rep, bg = H // KV, B * KV
@@ -439,37 +446,39 @@ def mistral_step(params, cfg: MistralConfig, x_embed, cache, index: int, lora=No
         a = p["attn"]
         h = _rms_norm(x, p["ln1"], cfg.rms_norm_eps)
         q, k, v = _qkv_matmul(a, cfg, h, ll, scale, tp)
-        q = _rope(q.reshape(B, 1, H, d).transpose(1, 2), tables)     # [B, H, 1, d]
-        k = _rope(k.reshape(B, 1, KV, d).transpose(1, 2), tables)    # [B, KV, 1, d]
-        if q8:
-            ck, cv, sk, sv = cache[i]
-            qk, s_k = quantize_vec(k[:, :, 0].float())
-            qv, s_v = quantize_vec(v.reshape(B, KV, d).float())
-            ck[:, index] = qk.reshape(bg, d)
-            cv[:, index] = qv.reshape(bg, d)
-            sk[:, index] = s_k.reshape(bg)
-            sv[:, index] = s_v.reshape(bg)
-            # int8 x activation products accumulate and stay in fp32 (the
-            # JAX step's preferred_element_type), scales folded in
-            qg = q[:, :, 0].reshape(bg, rep, d).float()
-            att = torch.bmm(qg, ck[:, lo:hi].float().transpose(1, 2))       # [BG, rep, n]
-            att = att * div(sk[:, None, lo:hi], sqrt_d)
-            att = torch.softmax(att, dim=-1)
-            att = (att * sv[:, None, lo:hi]).to(x.dtype)
-            o = torch.bmm(att.float(), cv[:, lo:hi].float())               # [BG, rep, d]
-            o = o.to(x.dtype).reshape(B, 1, H * d)
-        else:
-            ck, cv = cache["k"][i], cache["v"][i]                            # [B, KV, T, d]
-            ck[:, :, index] = k[:, :, 0].to(ck.dtype)
-            cv[:, :, index] = v.reshape(B, KV, d).to(cv.dtype)
-            qg = q[:, :, 0].reshape(B, KV, rep, d)
-            att = qg @ ck[:, :, lo:hi].to(x.dtype).transpose(-1, -2)        # [B, KV, rep, n]
-            att = torch.softmax(div(att.float(), sqrt_d), dim=-1).to(x.dtype)
-            o = (att @ cv[:, :, lo:hi].to(x.dtype)).reshape(B, 1, H * d)
+        with annotate("layer.attn"):
+            q = _rope(q.reshape(B, 1, H, d).transpose(1, 2), tables)     # [B, H, 1, d]
+            k = _rope(k.reshape(B, 1, KV, d).transpose(1, 2), tables)    # [B, KV, 1, d]
+            if q8:
+                ck, cv, sk, sv = cache[i]
+                qk, s_k = quantize_vec(k[:, :, 0].float())
+                qv, s_v = quantize_vec(v.reshape(B, KV, d).float())
+                ck[:, index] = qk.reshape(bg, d)
+                cv[:, index] = qv.reshape(bg, d)
+                sk[:, index] = s_k.reshape(bg)
+                sv[:, index] = s_v.reshape(bg)
+                # int8 x activation products accumulate and stay in fp32 (the
+                # JAX step's preferred_element_type), scales folded in
+                qg = q[:, :, 0].reshape(bg, rep, d).float()
+                att = torch.bmm(qg, ck[:, lo:hi].float().transpose(1, 2))       # [BG, rep, n]
+                att = att * div(sk[:, None, lo:hi], sqrt_d)
+                att = torch.softmax(att, dim=-1)
+                att = (att * sv[:, None, lo:hi]).to(x.dtype)
+                o = torch.bmm(att.float(), cv[:, lo:hi].float())               # [BG, rep, d]
+                o = o.to(x.dtype).reshape(B, 1, H * d)
+            else:
+                ck, cv = cache["k"][i], cache["v"][i]                            # [B, KV, T, d]
+                ck[:, :, index] = k[:, :, 0].to(ck.dtype)
+                cv[:, :, index] = v.reshape(B, KV, d).to(cv.dtype)
+                qg = q[:, :, 0].reshape(B, KV, rep, d)
+                att = qg @ ck[:, :, lo:hi].to(x.dtype).transpose(-1, -2)        # [B, KV, rep, n]
+                att = torch.softmax(div(att.float(), sqrt_d), dim=-1).to(x.dtype)
+                o = (att @ cv[:, :, lo:hi].to(x.dtype)).reshape(B, 1, H * d)
         x = x + _lora_matmul(o, a["wo"], _site(ll, "wo"), scale, tp, row=True)
         h = _rms_norm(x, p["ln2"], cfg.rms_norm_eps)
         x = x + _mlp(p["mlp"], h, ll, scale, tp)
-    return _head(params, cfg, x, lora, scale, tp)[:, 0], cache
+    with annotate("decode.logits"):
+        return _head(params, cfg, x, lora, scale, tp)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

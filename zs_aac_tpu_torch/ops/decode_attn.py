@@ -31,7 +31,9 @@ cache byte). One warp per (b, h); ``decode_attn_plan`` (a rule on the dtype,
 the head dim and the rows read) picks the width of a lane's cache loads and
 the warps a block. ``decode_attn_q8.launches`` counts kernel launches of
 either softmax, ``decode_attn_q8.bf16_softmax_launches`` those of the bf16
-one.
+one. While a profiler records, each launch is an operation named
+``decode_attn_q8`` (``annotate(..., launch=True)``), so the trace links the
+kernel to it and to the spans around it.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import torch
 
 from zs_aac_tpu_torch.ops.quant import div, quantize_vec
 from zs_aac_tpu_torch.utils.cuda_build import load_library
+from zs_aac_tpu_torch.utils.profiling import annotate
 
 __all__ = ["bf16_softmax", "decode_attn_plan", "decode_attn_q8", "decode_attn_q8_plain"]
 
@@ -187,11 +190,12 @@ def decode_attn_q8(q, k_new, v_new, ck, cv, sk, sv, index: int, softmax_dtype=to
     o = torch.empty((B, H, d), dtype=q.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     sm = _DTYPES[softmax_dtype]
-    rc = fn(_DTYPES[q.dtype], sm, vec, warps,
-            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            q.stride(0), k_new.stride(0), v_new.stride(0),
-            ck.data_ptr(), cv.data_ptr(), sk.data_ptr(), sv.data_ptr(), o.data_ptr(),
-            B, H, ck.shape[2], d, int(index), float(math.sqrt(d)), stream)
+    with annotate("decode_attn_q8", launch=True):
+        rc = fn(_DTYPES[q.dtype], sm, vec, warps,
+                q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                q.stride(0), k_new.stride(0), v_new.stride(0),
+                ck.data_ptr(), cv.data_ptr(), sk.data_ptr(), sv.data_ptr(), o.data_ptr(),
+                B, H, ck.shape[2], d, int(index), float(math.sqrt(d)), stream)
     if rc != 0:
         raise RuntimeError(f"decode_attn_q8: kernel launch failed (cudaError {rc})")
     decode_attn_q8.launches += 1

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from zs_aac_tpu_torch.utils.cuda_build import load_library
+from zs_aac_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "LogMelConfig",
@@ -375,12 +376,14 @@ class _LogMel(torch.autograd.Function):
 
 def log_mel(wave: torch.Tensor, cfg: LogMelConfig) -> torch.Tensor:
     """K2: ``log_mel_plain`` for CPU tensors, the CUDA kernel for CUDA
-    tensors (same arguments and result, differentiable in ``wave``)."""
-    if wave.device.type == "cpu":
-        return log_mel_plain(wave, cfg)
-    if wave.device.type != "cuda":
+    tensors (same arguments and result, differentiable in ``wave``). Span
+    ``encode.frontend``."""
+    if wave.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"log_mel: no kernel for device {wave.device}")
-    return _LogMel.apply(wave, cfg)
+    with annotate("encode.frontend"):
+        if wave.device.type == "cpu":
+            return log_mel_plain(wave, cfg)
+        return _LogMel.apply(wave, cfg)
 
 
 log_mel.launches = 0

@@ -14,6 +14,8 @@ import functools
 
 import torch
 
+from zs_aac_tpu_torch.utils.profiling import annotate
+
 __all__ = ["div", "quantize_vec", "quant_act"]
 
 
@@ -37,8 +39,9 @@ def quantize_vec(x: torch.Tensor):
 def quant_act(x: torch.Tensor):
     """Dynamic per-row int8 activation quantization: (int8 [..., K],
     fp32 scale [..., 1]). The abs-max reduces in ``x``'s own dtype, which
-    is exact."""
-    sx = torch.clamp_min(div(x.abs().amax(dim=-1, keepdim=True).float(), 127.0),
-                         1e-8)
-    xq = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
+    is exact. Span ``layer.quant``."""
+    with annotate("layer.quant"):
+        sx = torch.clamp_min(div(x.abs().amax(dim=-1, keepdim=True).float(), 127.0),
+                             1e-8)
+        xq = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
     return xq, sx

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from zs_aac_tpu_torch.utils.profiling import annotate
+
 __all__ = ["poly_resample_plan", "resample_poly_device"]
 
 _HALF = 16
@@ -95,7 +97,13 @@ def poly_resample_plan(sr_in: int, sr_out: int, n_in: int):
 def resample_poly_device(x: torch.Tensor, sr_in: int, sr_out: int,
                          target_len: int | None = None) -> torch.Tensor:
     """[B, n_in] int16 PCM or float at sr_in -> [B, n_out] float32 at sr_out
-    on x's device; ``target_len`` zero-pads or truncates the output."""
+    on x's device; ``target_len`` zero-pads or truncates the output. Span
+    ``encode.frontend``."""
+    with annotate("encode.frontend"):
+        return _resample(x, sr_in, sr_out, target_len)
+
+
+def _resample(x, sr_in, sr_out, target_len):
     B, n_in = x.shape
     if x.dtype == torch.int16:
         x = x.float() / 32768.0

@@ -4,8 +4,12 @@
   writes a Chrome/Perfetto trace (``trace.json``) into ``logdir``, with
   CUDA activity where ``device`` is a card; the profile object is yielded,
   so its ``key_averages()`` and events can be read afterwards.
-- ``annotate(name)``: ``torch.profiler.record_function``, a named region on
-  the trace's timeline.
+- ``annotate(name)``: the port's one span helper. While a profiler records
+  it is ``torch.profiler.record_function(name)``, a named region on the
+  trace's timeline, nested with the ATen operations it encloses and on the
+  same clock as the device records; otherwise it is one shared
+  ``contextlib.nullcontext``, so a span costs a flag read with no profiler
+  running. The decode and encode paths open the spans listed in ``SPANS``.
 - ``StepTimer``: step wall-clock statistics with warm-up skipping and the
   JAX timer's ``summary()`` keys. The JAX timer reads the host clock around
   a step whose results the caller has already fetched; a CUDA step returns
@@ -32,7 +36,24 @@ import torch
 
 from zs_aac_tpu_torch.utils.device import resolve_device
 
-__all__ = ["trace", "annotate", "StepTimer", "device_memory_stats"]
+__all__ = ["SPANS", "trace", "annotate", "StepTimer", "device_memory_stats"]
+
+# The spans the port opens, each named after the layer boundary it marks.
+SPANS = (
+    "decode.mapper",       # models/caption.py::caption_embeddings, caption_mistral's
+    "decode.prefill",      # decoding/greedy.py: cache, prefill, its quantize, first argmax
+    "decode.step",         # one cached step: embed, blocks, head, argmax, token updates
+    "decode.stop_check",   # the host's read of "every row has stopped"
+    "decode.logits",       # the final norm and the LM head of a step
+    "layer.norm",          # models/gpt2.py::_ln, models/mistral.py::_rms_norm
+    "layer.quant",         # ops/quant.py::quant_act
+    "layer.rescale",       # the int8 GEMM's int32 -> float rescale and cast, the bias add
+    "layer.attn",          # a decode step's attention over the cache, with its commit
+    "layer.act",           # GELU, SwiGLU's silu(g) * u
+    "layer.lora",          # models/mistral.py::_lora_delta
+    "encode.frontend",     # resample, log-mel, HTSAT's bn0 and spectrogram reshape
+)
+_NULL = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -55,8 +76,18 @@ def trace(logdir: str, device="cuda"):
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named region inside a trace (shows up on the timeline)."""
+def annotate(name: str, launch: bool = False):
+    """A named span while a profiler records, else a shared no-op context.
+
+    ``launch=True`` marks a kernel launched from Python (through ``ctypes``)
+    rather than a span: ``record_function`` is a user annotation, to which
+    the profiler links no kernel, so a launch made inside one and outside
+    any ATen operation links to nothing. The launch's record is then an
+    operation of the profiler's own kind, which the kernel links to."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NULL
+    if launch:
+        return torch._C._profiler._RecordFunctionFast(name)
     return torch.profiler.record_function(name)
 
 
