@@ -7,8 +7,9 @@ fails, printing no result, where CUDA is not available. Phases, each of
 which must pass:
 
 1. build every kernel: K1 (``csrc/decode_attn.cu``), K2 (``csrc/logmel.cu``),
-   K3/K5/K7 (``csrc/window_attn.cu``) and K6/K8/K9 (``csrc/swin_train.cu``),
-   with each nvcc's time;
+   K3/K5/K7 (``csrc/window_attn.cu``), K6/K8/K9 (``csrc/swin_train.cu``)
+   and the w8a8 GEMMs' quantize and rescale (``csrc/quant.cu``), with each
+   nvcc's time;
 2. hold K1 against its plain PyTorch version at the main path's shapes
    (B=256, H=12, d=64, T=77) and at edge shapes (B=1, d=16; d=24; d=12, 6
    and 5, the narrower loads), fp32 and bf16, then at every index 10..76 in
@@ -16,7 +17,12 @@ which must pass:
    after each step; all of it again with the bf16 softmax (K1's second
    instantiation, ``--bf16_softmax``), which is also held to a share of rows
    within the fp32 rule that its control, the fp32 instantiation on the same
-   inputs, must fail;
+   inputs, must fail; then Q1 and Q2 (``csrc/quant.cu``: the w8a8 GEMMs'
+   quantize and rescale) bitwise against their plain versions at every int8
+   GEMM of phase 4's step, of the GPT-2 benchmark cell's (B=8,192, fp32)
+   and of phase 18's Mistral steps (B=256, unfused and fused), with rows of
+   .5 ties, zeros and a negative largest magnitude, and timed beside their
+   byte bounds (``phase_quant_vs_plain``);
 3. exact captions on learned weights: the port's ``predict_prompt`` on the
    committed tiny captioner (greedy and ``--q8``, beam ``--isbeam`` and
    ``--isbeam --q8``, each beam also with ``--bf16_softmax``, and MAGIC
@@ -28,8 +34,10 @@ which must pass:
 4. the decode half at full width: CLAP embedding -> MLP mapper
    1024->3840->7680 -> GPT-2 124M (seeded random weights), B=256, Lp=10, 67
    greedy steps, bf16 activations, w8a8 weights + int8 KV cache, every
-   attention through K1 (launch count checked). Kernel and plain attention
-   are teacher-forced on one token stream and their logits compared;
+   attention through K1 and every int8 GEMM through Q1 and Q2 (launch counts
+   checked: 4 L + 1 of each in the prefill and in each step). Kernel and
+   plain attention are teacher-forced on one token stream and their logits
+   compared;
    captions/s and K1's time per call beside its byte bound are measured
    with CUDA events (K1 launched from Python, the kernels line's ``ms``, and
    as a CUDA graph of the same launches, the kernel's own time, its
@@ -176,7 +184,8 @@ which must pass:
     1024 -> 20480 -> 40960, 10 prefix + 3 tag positions) decoding 60 tokens
     with EOS never met: bf16 with the float cache at B=64, w8a8 with the int8
     cache at B=64 and at B=256 unfused and fused (``--fuse_qkv auto``'s
-    choice there); ``tests/test_mistral.py``'s int8 bounds at its own config
+    choice there; Q1 and Q2 launches checked, 7 L + 1 of each in the prefill
+    and each step unfused, 4 L + 1 fused); ``tests/test_mistral.py``'s int8 bounds at its own config
     (``MISTRAL_INT8_TOL``); teacher-forced on the bf16 decode's tokens, the
     bf16 steps against the bf16 ``mistral_forward`` within
     ``MISTRAL_FLOOR_FACTOR`` times the bf16 forward's distance from its fp32
@@ -223,8 +232,8 @@ which must pass:
     f, g and vocabulary gather) giving the unsharded decode's tokens and
     lengths; the group destroyed.
 
-The last lines are the ``kernels`` JSON line, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the ``kernels`` JSON line (K1-K9, Q1, Q2), the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -450,7 +459,7 @@ def k1_bound(B, H, d, index, act_bytes):
 def phase_build():
     from zs_aac_tpu_torch.utils import cuda_build
 
-    names = ["decode_attn", "logmel", "window_attn", "swin_train"]
+    names = ["decode_attn", "logmel", "window_attn", "swin_train", "quant"]
     report = cuda_build.build(names)
     for name in names:
         if name in report:
@@ -543,6 +552,123 @@ def phase_k1_vs_plain():
     return worst, shares
 
 
+# Q1 (quantize) and Q2 (rescale), csrc/quant.cu, at one decode step's int8
+# GEMMs: (K, N, bias, GEMMs a step), K the quantized width (the GEMM's
+# depth), N the rescaled one (its columns). GPT-2 124M a layer: c_attn,
+# attn.c_proj, c_fc, mlp.c_proj, then the int8 head over the padded
+# vocabulary. Mistral-7B unfused a layer: wq and wo, wk and wv, gate and up,
+# down, then lm_head; fused: wqkv, wo, gateup, down, lm_head.
+def quant_step(family, n_layer):
+    if family == "gpt2":
+        return [(768, 2304, True, n_layer), (768, 768, True, n_layer),
+                (768, 3072, True, n_layer), (3072, 768, True, n_layer), (768, 50264, False, 1)]
+    if family == "mistral":
+        return [(4096, 4096, False, 2 * n_layer), (4096, 1024, False, 2 * n_layer),
+                (4096, 14336, False, 2 * n_layer), (14336, 4096, False, n_layer),
+                (4096, 32000, False, 1)]
+    return [(4096, 6144, False, n_layer), (4096, 4096, False, n_layer),
+            (4096, 28672, False, n_layer), (14336, 4096, False, n_layer), (4096, 32000, False, 1)]
+
+
+def quant_rows(M, K, dtype, g):
+    """Activations N(0, 3) whose first rows are the edge cases: exact .5
+    ties after scaling (abs-max 127 * 2^-3, every value (k + 1/2) * 2^-3),
+    all zeros (the 1e-8 clamp), a largest magnitude that is negative."""
+    import torch
+
+    x = torch.randn(M, K, generator=g, device="cuda") * 3
+    x[0] = (torch.randint(-126, 126, (K,), generator=g, device="cuda").float() + 0.5) * 0.125
+    x[0, K // 2] = 127 * 0.125
+    x[1] = 0
+    x[2] = x[2].abs() * 0.5
+    x[2, K - 1] = -x[2].max() * 1.5
+    return x.to(dtype)
+
+
+def phase_quant_vs_plain():
+    """Q1 and Q2 against ``quant_act_plain`` and ``int8_rescale_plain``,
+    bitwise, at every int8 GEMM of phase 4's step (GPT-2 at B=256, bf16),
+    of the GPT-2 benchmark cell's (B=8,192, fp32) and of phase 18's Mistral
+    steps (B=256, bf16, unfused and fused), rescaling to bf16 and fp32; the
+    int32 inputs are ``torch._int_mm`` of the quantized rows and random int8
+    weights. Then both are timed at phase 4's and the unfused Mistral step's
+    shapes, each input set copied past twice the 50 MB L2. Returns {"Q1":
+    stats, "Q2": stats}: ms a call launched from Python (``ms``), in a CUDA
+    graph (``graph_ms``), the plain version's (``plain_ms``) and the byte
+    bound (``bound_ms``), each the mean over one step's calls, Mistral's
+    under ``mistral_``."""
+    import torch
+
+    from zs_aac_tpu_torch.models.gpt2 import _int_mm
+    from zs_aac_tpu_torch.ops.quant import (int8_rescale, int8_rescale_plain, quant_act,
+                                            quant_act_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    # (family, rows, activation dtype, the prefix of its timing keys or None)
+    steps = [("gpt2", 256, bf, ""), ("gpt2", 8192, f32, None), ("mistral", 256, bf, "mistral_"),
+             ("mistral_fused", 256, bf, None)]
+    L2 = 50 * 2 ** 20
+    stats = {"Q1": {}, "Q2": {}}
+    n_cases = 0
+    with torch.no_grad():
+        for family, M, dt, pre in steps:
+            sums = {key: dict.fromkeys(("ms", "graph_ms", "plain_ms", "bound_ms"), 0.0)
+                    for key in stats}
+            calls = 0
+            for K, N, bias, n in quant_step(family, 12 if family == "gpt2" else 32):
+                x = quant_rows(M, K, dt, g)
+                xq, sx = quant_act(x)
+                xq0, sx0 = quant_act_plain(x)
+                check(torch.equal(xq, xq0) and torch.equal(sx, sx0),
+                      f"Q1 differs from its plain version at {M} x {K} {dt}")
+                w = torch.randint(-127, 128, (N, K), generator=g, device="cuda",
+                                  dtype=torch.int8).t()
+                y = _int_mm(xq, w)
+                ws = torch.rand(N, generator=g, device="cuda") * 0.01 + 1e-5
+                b = torch.randn(N, generator=g, device="cuda") if bias else None
+                for out in (f32,) if dt == f32 else (bf, f32):
+                    bo = None if b is None else b.to(out)
+                    check(torch.equal(int8_rescale(y, sx, ws, out, bo),
+                                      int8_rescale_plain(y, sx, ws, out, bo)),
+                          f"Q2 differs from its plain version at {M} x {N} -> {out}, bias {bias}")
+                n_cases += 2 if dt == f32 else 3
+                if pre is None:
+                    continue
+                xs = [(x,)] + [(x.clone(),) for _ in range(-(-2 * L2 // x.nbytes) - 1)]
+                bo = None if b is None else b.to(dt)
+                ys = [(y, sx, ws, dt, bo)] + [(y.clone(), sx, ws, dt, bo)
+                                              for _ in range(-(-2 * L2 // y.nbytes) - 1)]
+                nbytes = {"Q1": M * K * (dt.itemsize + 1) + 4 * M,
+                          "Q2": M * N * (4 + dt.itemsize) + 4 * M + 4 * N
+                          + (N * dt.itemsize if bias else 0)}
+                for key, fn, plain, inputs in (("Q1", quant_act, quant_act_plain, xs),
+                                               ("Q2", int8_rescale, int8_rescale_plain, ys)):
+                    k = len(inputs)
+                    fn(*inputs[0])
+                    plain(*inputs[0])
+                    sums[key]["ms"] += n * timed_ms(lambda r: fn(*inputs[r % k]), 20)
+                    sums[key]["graph_ms"] += n * graph_ms(lambda r: fn(*inputs[r % k]), 20)
+                    sums[key]["plain_ms"] += n * timed_ms(lambda r: plain(*inputs[r % k]), 10)
+                    sums[key]["bound_ms"] += n * nbytes[key] / H100_BYTES_PER_S * 1e3
+                calls += n
+                del xs, ys
+            if pre is not None:
+                for key in stats:
+                    stats[key].update({pre + k: v / calls for k, v in sums[key].items()})
+    print(f"[quant] Q1 and Q2 bitwise equal to their plain versions in {n_cases} cases: phase "
+          f"4's GPT-2 step at B=256 bf16, the GPT-2 cell's at B=8192 fp32, Mistral-7B's "
+          f"unfused and fused at B=256 bf16", flush=True)
+    for key, name in (("Q1", "quantize"), ("Q2", "rescale")):
+        for pre, step in (("", "GPT-2 B=256 bf16"), ("mistral_", "Mistral-7B B=256 bf16")):
+            us = {k: stats[key][pre + k] * 1e3 for k in ("ms", "graph_ms", "plain_ms", "bound_ms")}
+            print(f"[quant] {key} ({name}), mean over a {step} step's calls: {us['ms']:.2f} us "
+                  f"launched from Python, {us['graph_ms']:.2f} us in a CUDA graph (bound "
+                  f"{us['bound_ms']:.2f} us, {us['bound_ms'] / us['graph_ms']:.1%} of it), "
+                  f"plain {us['plain_ms']:.2f} us", flush=True)
+    return stats
+
+
 # MAGIC on the tiny captioner: the committed tiny CLAP checkpoint; width 5
 # fits its 24-word vocabulary (tests/test_torch_predict.py's MODES)
 FIXTURE_MAGIC = ["--magic", "--magic_width", "5"]
@@ -598,6 +724,7 @@ def phase_full_width():
                                               gpt2_step_q8, init_kv_cache_q8,
                                               quantize_gpt2_int8)
     from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8, decode_attn_q8_plain
+    from zs_aac_tpu_torch.ops.quant import int8_rescale, quant_act
 
     B, Lp, steps = 256, 10, 67
     cfg = CaptionConfig(prefix_length=Lp, prefix_size=1024, gpt2=GPT2Config())
@@ -617,19 +744,23 @@ def phase_full_width():
 
     decode()                                    # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    # the main path, counted: K1 launches between these two reads
-    decode_attn_q8.launches = 0
+    # the main path, counted: K1, Q1 and Q2 launches between these two reads
+    decode_attn_q8.launches = quant_act.launches = int8_rescale.launches = 0
     t0 = time.perf_counter()
     toks, lens = decode()
     torch.cuda.synchronize()
     walls = [time.perf_counter() - t0]
     launches = decode_attn_q8.launches
+    quant = {"Q1": quant_act.launches, "Q2": int8_rescale.launches}
     max_len = int(lens.max())
     steps_run = min(steps, math.ceil(max_len / CHECK_EVERY) * CHECK_EVERY)
+    dots = (4 * gcfg.n_layer + 1) * (steps_run + 1)     # 4 a layer and the head; prefill too
     print(f"[full] w8a8+q8 greedy B={B} Lp={Lp}: lengths min/max {int(lens.min())}/{max_len}, "
           f"steps run {steps_run}, K1 launches {launches} "
-          f"(expected {gcfg.n_layer} x {steps_run})", flush=True)
+          f"(expected {gcfg.n_layer} x {steps_run}), Q1/Q2 launches {quant['Q1']}/{quant['Q2']} "
+          f"(expected {4 * gcfg.n_layer + 1} x {steps_run + 1} = {dots} each)", flush=True)
     check(launches == gcfg.n_layer * steps_run, "K1 launch count off the main path's")
+    check(quant == {"Q1": dots, "Q2": dots}, "Q1/Q2 launch counts off the main path's")
     check(bool(((toks >= 0) & (toks < gcfg.vocab_size)).all()), "token ids out of range")
     for _ in range(2):
         t0 = time.perf_counter()
@@ -737,7 +868,7 @@ def phase_full_width():
         pwall = time.perf_counter() - t0
     print(f"[profile] one decode under torch.profiler: wall {pwall * 1e3:.2f} ms", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
-    return launches, k1
+    return launches, quant, k1
 
 
 # -- beam search ----------------------------------------------------------------
@@ -3019,6 +3150,7 @@ def phase_mistral():
     from zs_aac_tpu_torch.models.mistral import (MistralConfig, init_lora, init_mistral,
                                                  mistral_embed, mistral_forward,
                                                  quantize_mistral_int8)
+    from zs_aac_tpu_torch.ops.quant import int8_rescale, quant_act
 
     t_phase = time.perf_counter()
     _mistral_fixture()
@@ -3132,8 +3264,24 @@ def phase_mistral():
         check(max(approx[cfg.n_layers]) <= MISTRAL_INT8_7B_TOL,
               "the int8 paths are off the bf16 path at 7B widths")
 
-        toks, lens, wall, dev_ms = _mistral_decode(w8a8, cfg, emb64, lora, True)
+        # Q1 and Q2 launches of each w8a8 decode: one of each per int8 GEMM,
+        # 7 a layer unfused, 4 fused, and lm_head's, in the prefill and each
+        # of the n - 1 steps
+        per_step = {"unfused": 7 * cfg.n_layers + 1, "fused": 4 * cfg.n_layers + 1}
+
+        def counted(name, *args):
+            quant_act.launches = int8_rescale.launches = 0
+            out = _mistral_decode(*args)
+            counts = (quant_act.launches, int8_rescale.launches)
+            check(counts == (per_step[name] * n,) * 2,
+                  f"{name} w8a8 decode: Q1/Q2 launches {counts}, expected {per_step[name]} x {n}")
+            return out
+
+        toks, lens, wall, dev_ms = counted("unfused", w8a8, cfg, emb64, lora, True)
         report("w8a8 + int8 cache", 64, toks, lens, wall, dev_ms, w8a8)
+        print(f"[mistral] Q1/Q2 launches a w8a8 decode: unfused {per_step['unfused']} x {n} = "
+              f"{per_step['unfused'] * n} each (B=64 and 256), fused {per_step['fused']} x {n} = "
+              f"{per_step['fused'] * n} each (B=256)", flush=True)
         # B=256: unfused then fused (what --fuse_qkv auto picks there), twice each
         fused = None
         runs = {"unfused": [], "fused": []}
@@ -3142,7 +3290,7 @@ def phase_mistral():
                 if name == "fused" and fused is None:
                     fused = quantize_mistral_int8(base, "w8a8", fuse=True)
                 q = w8a8 if name == "unfused" else fused
-                runs[name].append(_mistral_decode(q, cfg, emb256, lora, True))
+                runs[name].append(counted(name, q, cfg, emb256, lora, True))
         for name in ("unfused", "fused"):
             best = min(runs[name], key=lambda r: r[2])
             report(f"w8a8 + int8 cache {name}", 256, *best, w8a8 if name == "unfused" else fused)
@@ -3169,6 +3317,7 @@ def phase_mistral():
     print(f"[mistral] phase 18 took {time.perf_counter() - t_phase:.1f} s (fixture and the "
           f"JAX tests' bounds {t_fixture:.1f} s, 7B serving {t_serve:.1f} s, the LoRA step "
           f"{time.perf_counter() - t_phase - t_fixture - t_serve:.1f} s)", flush=True)
+    return {name: per_step[name] * n for name in per_step}
 
 
 def _lora_grads(params, ccfg, batch, dtype):
@@ -3791,8 +3940,9 @@ def main():
     t_start = time.perf_counter()
     phase_build()
     worst, k1b_shares = phase_k1_vs_plain()
+    quant = phase_quant_vs_plain()
     phase_fixture_captions()
-    launches, k1 = phase_full_width()
+    launches, quant_launches, k1 = phase_full_width()
     k2_err = phase_k2_vs_plain()
     window_err = phase_window_vs_plain()
     phase_fixture_bank()
@@ -3806,7 +3956,7 @@ def main():
     phase_magic_full_width()
     cnn_launches = phase_cnn_full_width()
     chain_launches = phase_caption_train()
-    phase_mistral()
+    mistral_quant = phase_mistral()
     tower_launches = phase_text_towers()
     phase_parallel()
 
@@ -3863,6 +4013,14 @@ def main():
                         "launches": int(train_launches[key]), **tower(key),
                         "max_abs_err": train_err[key],
                         **train[key], "library_ms": None})
+    for key, name, kernel in (("Q1", "quant_act", "quant_act_kernel"),
+                              ("Q2", "int8_rescale", "int8_rescale_kernel")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"zs_aac_tpu_torch/csrc/quant.cu::{kernel}",
+                        "replaces": None,      # no TPU kernel: XLA fused the chain there
+                        "launches": quant_launches[key],
+                        "mistral_launches": mistral_quant, "max_abs_err": 0.0,
+                        **quant[key], "bound_by": "bytes", "library_ms": None})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -69,7 +69,7 @@ def _ln(x, p, eps):
 
 
 def _dense(x, q):
-    return _int8_dot(x, q["w"], q["scale_a8"], x.dtype) + q["b"].to(x.dtype)
+    return _int8_dot(x, q["w"], q["scale_a8"], x.dtype, bias=q["b"].to(x.dtype))
 
 
 def encode_text_q8(qt: dict, cfg: BertConfig, ids, compute_dtype=torch.bfloat16):

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from zs_aac_tpu_torch.ops.decode_attn import bf16_softmax, decode_attn_q8
-from zs_aac_tpu_torch.ops.quant import div, quant_act, quantize_vec
+from zs_aac_tpu_torch.ops.quant import div, int8_rescale, quant_act, quantize_vec
 from zs_aac_tpu_torch.parallel.mesh import tp_copy, tp_gather, tp_reduce
 from zs_aac_tpu_torch.parallel.tp import embed_lookup
 from zs_aac_tpu_torch.utils.device import resolve_device
@@ -113,13 +113,12 @@ def _int_mm(a, b):
 def _int8_dot(x, w, w_scale, out_dtype, w_contract_dim=0, bias=None):
     """W8A8: per-row int8 activations, an int8 x int8 GEMM with int32
     accumulation, the fp32 rescale, then the activation dtype, then
-    ``bias`` if given (spans ``layer.quant`` and ``layer.rescale``)."""
+    ``bias`` if given (``ops/quant.py``: spans ``layer.quant`` and
+    ``layer.rescale``, one kernel each on a card)."""
     xq, sx = quant_act(x)
     b = w if w_contract_dim == 0 else w.t()
     y = _int_mm(xq.reshape(-1, xq.shape[-1]), b).reshape(*xq.shape[:-1], -1)
-    with annotate("layer.rescale"):
-        y = (y.float() * sx * w_scale).to(out_dtype)
-        return y if bias is None else y + bias
+    return int8_rescale(y, sx, w_scale, out_dtype, bias)
 
 
 def _mm(x, p):

@@ -47,7 +47,7 @@ SPANS = (
     "decode.logits",       # the final norm and the LM head of a step
     "layer.norm",          # models/gpt2.py::_ln, models/mistral.py::_rms_norm
     "layer.quant",         # ops/quant.py::quant_act
-    "layer.rescale",       # the int8 GEMM's int32 -> float rescale and cast, the bias add
+    "layer.rescale",       # ops/quant.py::int8_rescale (int32 -> float, cast, bias); _mm's bias add
     "layer.attn",          # a decode step's attention over the cache, with its commit
     "layer.act",           # GELU, SwiGLU's silu(g) * u
     "layer.lora",          # models/mistral.py::_lora_delta
