@@ -14,6 +14,9 @@ here). The loop leaves early once every row has stopped, checking every
 ``mistral_greedy_decode`` is the Mistral captioner's decode (eos 2, at most
 60 new tokens, the EOS itself not emitted), over the float or the int8 KV
 cache, with the same full-length cache and early exit.
+``deepseek_greedy_decode`` is the same captioner's decode over a
+DeepSeek-V2 base and its latent cache (eos 100001). Both run one loop,
+``_greedy_eos``, given the model's prefill and step.
 
 Spans (``utils/profiling.py``): ``decode.prefill`` over the cache's
 allocation, the prefill with its cache quantize and the first argmax;
@@ -39,7 +42,8 @@ from zs_aac_tpu_torch.models.gpt2 import (
 from zs_aac_tpu_torch.ops.decode_attn import decode_attn_q8
 from zs_aac_tpu_torch.utils.profiling import annotate
 
-__all__ = ["CHECK_EVERY", "greedy_decode", "greedy_decode_q8", "mistral_greedy_decode"]
+__all__ = ["CHECK_EVERY", "deepseek_greedy_decode", "greedy_decode", "greedy_decode_q8",
+           "mistral_greedy_decode"]
 
 CHECK_EVERY = 8  # steps between host checks for "every row has stopped"
 
@@ -105,48 +109,90 @@ def greedy_decode_q8(params: dict, cfg: GPT2Config, prefix_embeds: torch.Tensor,
 
 
 @torch.no_grad()
-def mistral_greedy_decode(params: dict, cfg, prefix_embeds: torch.Tensor, lora=None,
-                          max_new_tokens: int = 60, eos_token_id: int = 2, *,
-                          q8_cache: bool = False, tp=None):
-    """Batched greedy decode of the Mistral captioner (``cfg`` a
-    ``MistralConfig``; ``params`` float or ``quantize_mistral_int8``'s).
-    Returns (tokens [B, max_new_tokens] int64, lengths [B] int64): a row's
-    tokens up to its EOS, which is not emitted, then 0; ``lengths`` counts
-    the steps each row was still running. ``q8_cache`` serves over the int8
-    KV cache. Under ``tp`` (float weights and cache) ``params`` and ``lora``
-    are this rank's shards (``parallel.tp``)."""
-    from zs_aac_tpu_torch.models.mistral import (init_mistral_cache, init_mistral_cache_q8,
-                                                 mistral_embed, mistral_prefill, mistral_step)
-
+def _greedy_eos(prefix_embeds, max_new_tokens, eos_token_id, prefill, step):
+    """The captioner's greedy loop (Mistral's and DeepSeek's): ``prefill(
+    embeds) -> (last position's logits [B, V], cache)`` (the cache made
+    inside), ``step(tokens [B], cache, index) -> (logits [B, V], cache)``.
+    A row's tokens run up to its EOS, which is not emitted, then 0;
+    ``lengths`` counts the steps each row was still running. The last
+    position's token is recorded without a step, whose logits would choose
+    nothing."""
     B, Lp, _ = prefix_embeds.shape
     dev = prefix_embeds.device
     with annotate("decode.prefill"):
-        if lora is not None:
-            # the matmul sites cast LoRA's a/b to the activation dtype; do it once
-            lora = _cast_matrices(lora, prefix_embeds.dtype)
-        T = Lp + max_new_tokens
-        cache = (init_mistral_cache_q8(cfg, B, T, dev) if q8_cache
-                 else init_mistral_cache(cfg, B, T, prefix_embeds.dtype, dev, tp))
-        logits, cache = mistral_prefill(params, cfg, prefix_embeds, cache, lora=lora, tp=tp)
-        cur = logits[:, -1].argmax(dim=-1)
+        logits, cache = prefill(prefix_embeds)
+        cur = logits.argmax(dim=-1)
         tokens = torch.zeros(B, max_new_tokens, dtype=torch.int64, device=dev)
         lengths = torch.zeros(B, dtype=torch.int64, device=dev)
         finished = cur == eos_token_id
     for i in range(max_new_tokens):
         if i % CHECK_EVERY == 0 and _all_stopped(finished):
             break
-        if i == max_new_tokens - 1:   # the last step's logits would choose no token
+        if i == max_new_tokens - 1:
             tokens[:, i] = torch.where(finished, 0, cur)
             lengths += (~finished).long()
             break
         with annotate("decode.step"):
             tokens[:, i] = torch.where(finished, 0, cur)
             lengths += (~finished).long()
-            logits, cache = mistral_step(params, cfg, mistral_embed(params, cur, tp), cache,
-                                         Lp + i, lora=lora, tp=tp)
+            logits, cache = step(cur, cache, Lp + i)
             cur = logits.argmax(dim=-1)
             finished = finished | (cur == eos_token_id)
     return tokens, lengths
+
+
+def mistral_greedy_decode(params: dict, cfg, prefix_embeds: torch.Tensor, lora=None,
+                          max_new_tokens: int = 60, eos_token_id: int = 2, *,
+                          q8_cache: bool = False, tp=None):
+    """Batched greedy decode of the Mistral captioner (``cfg`` a
+    ``MistralConfig``; ``params`` float or ``quantize_mistral_int8``'s),
+    through ``_greedy_eos``. Returns (tokens [B, max_new_tokens] int64,
+    lengths [B] int64). ``q8_cache`` serves over the int8 KV cache. Under
+    ``tp`` (float weights and cache) ``params`` and ``lora`` are this rank's
+    shards (``parallel.tp``)."""
+    from zs_aac_tpu_torch.models.mistral import (init_mistral_cache, init_mistral_cache_q8,
+                                                 mistral_embed, mistral_prefill, mistral_step)
+
+    B, Lp, _ = prefix_embeds.shape
+    dev, dtype = prefix_embeds.device, prefix_embeds.dtype
+    # the matmul sites cast LoRA's a/b to the activation dtype; the prefill does it once
+    state = {"lora": lora}
+
+    def prefill(emb):
+        if lora is not None:
+            state["lora"] = _cast_matrices(lora, dtype)
+        T = Lp + max_new_tokens
+        cache = (init_mistral_cache_q8(cfg, B, T, dev) if q8_cache
+                 else init_mistral_cache(cfg, B, T, dtype, dev, tp))
+        logits, cache = mistral_prefill(params, cfg, emb, cache, lora=state["lora"], tp=tp)
+        return logits[:, -1], cache
+
+    def step(cur, cache, index):
+        return mistral_step(params, cfg, mistral_embed(params, cur, tp), cache, index,
+                            lora=state["lora"], tp=tp)
+
+    return _greedy_eos(prefix_embeds, max_new_tokens, eos_token_id, prefill, step)
+
+
+def deepseek_greedy_decode(params: dict, cfg, prefix_embeds: torch.Tensor,
+                           max_new_tokens: int = 60, eos_token_id: int = 100001, graphs=None):
+    """Batched greedy decode of the captioner over a DeepSeek-V2 base
+    (``cfg`` a ``DeepseekV2Config``, ``params`` in
+    ``prepare_deepseek_v2``'s serving form) through ``_greedy_eos``, over
+    the latent cache in the activations' dtype, each step through a
+    ``models.deepseek.StepGraphs`` (CUDA graphs on a card). ``graphs``: one
+    of this batch size kept by the caller, so that later batches replay
+    its graphs; otherwise one is made for the call. Same returns as
+    ``mistral_greedy_decode``."""
+    from zs_aac_tpu_torch.models.deepseek import StepGraphs, deepseek_prefill
+
+    B, Lp, _ = prefix_embeds.shape
+    if graphs is None:
+        graphs = StepGraphs(params, cfg, B, Lp + max_new_tokens, prefix_embeds.dtype,
+                            prefix_embeds.device)
+    return _greedy_eos(prefix_embeds, max_new_tokens, eos_token_id,
+                       lambda emb: deepseek_prefill(params, cfg, emb, graphs.cache),
+                       lambda cur, cache, index: (graphs.step(cur, index), cache))
 
 
 def _cast_matrices(tree, dtype):

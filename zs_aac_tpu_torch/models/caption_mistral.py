@@ -6,6 +6,12 @@ embeddings (cast to the base's dtype), hard prompts go before them, and the
 captions carry ``islang`` language-tag tokens whose positions are left out
 of the cross-entropy. Parameters are ``{"mapper": nn.Module, "lora": dict,
 "mistral": dict}``; the base is frozen, the mapper and LoRA train.
+
+The base may also be DeepSeek-V2 (``models/deepseek.py``): ``cfg.mistral``
+is then a ``DeepseekV2Config`` and ``cfg.family`` says so. It serves the
+same embeddings (``mistral_caption_embeddings``) to
+``decoding/greedy.py::deepseek_greedy_decode``, with no LoRA; its training
+logits are not ported.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from zs_aac_tpu_torch.models.deepseek import DeepseekV2Config
 from zs_aac_tpu_torch.models.mapper import init_mapper_, make_mapper
 from zs_aac_tpu_torch.models.mistral import (MistralConfig, init_lora, init_mistral,
                                              mistral_embed, mistral_forward)
@@ -44,7 +51,12 @@ class MistralCaptionConfig:
     max_seq_len: int = 40
     lora_r: int = 8
     lora_alpha: int = 16
-    mistral: MistralConfig = dataclasses.field(default_factory=MistralConfig)
+    mistral: MistralConfig = dataclasses.field(default_factory=MistralConfig)   # or DeepseekV2Config
+
+    @property
+    def family(self) -> str:
+        """The decoder family: ``"mistral"`` or ``"deepseek_v2"``."""
+        return "deepseek_v2" if isinstance(self.mistral, DeepseekV2Config) else "mistral"
 
 
 def init_mistral_caption(cfg: MistralCaptionConfig, seed: int = 0, device="cuda",
@@ -81,7 +93,9 @@ def mistral_caption_embeddings(params, cfg: MistralCaptionConfig, prefix,
 
 def mistral_caption_train_logits(params, cfg: MistralCaptionConfig, tokens, prefix, mask,
                                  hard_prompt_tokens=None, hard_prompt_mask=None, tp=None):
-    """Logits aligned to predict ``tokens[:, islang:]``."""
+    """Logits aligned to predict ``tokens[:, islang:]`` (a Mistral base)."""
+    if cfg.family != "mistral":
+        raise ValueError(f"training logits of a {cfg.family} base are not ported")
     embeds = mistral_caption_embeddings(params, cfg, prefix, hard_prompt_tokens, tokens, tp)
     full_mask = mask
     h = 0

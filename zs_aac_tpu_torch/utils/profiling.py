@@ -49,6 +49,9 @@ SPANS = (
     "layer.quant",         # ops/quant.py::quant_act
     "layer.rescale",       # ops/quant.py::int8_rescale (int32 -> float, cast, bias); _mm's bias add
     "layer.attn",          # a decode step's attention over the cache, with its commit
+    "layer.router",        # models/deepseek.py: gate GEMM, softmax, top k, counts, offsets, gather
+    "layer.experts",       # models/deepseek.py: the two grouped GEMMs and the SwiGLU between
+    "layer.combine",       # models/deepseek.py: inverse permutation, weighted sum, shared add
     "layer.act",           # GELU, SwiGLU's silu(g) * u
     "layer.lora",          # models/mistral.py::_lora_delta
     "encode.frontend",     # resample, log-mel, HTSAT's bn0 and spectrogram reshape
