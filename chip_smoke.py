@@ -22,7 +22,12 @@ which must pass:
    GEMM of phase 4's step, of the GPT-2 benchmark cell's (B=8,192, fp32)
    and of phase 18's Mistral steps (B=256, unfused and fused), with rows of
    .5 ties, zeros and a negative largest magnitude, and timed beside their
-   byte bounds (``phase_quant_vs_plain``);
+   byte bounds (``phase_quant_vs_plain``); then K1g (``csrc/decode_attn_gqa.cu``,
+   Mistral's grouped int8-cache step attention with RoPE and the cache commit
+   inside) against its plain version at Mistral-7B's heads, the benchmark
+   cell's B=2,048 at its first and last step among them, the committed rows
+   (the quantized rotated k among them) bitwise, and timed there
+   (``phase_k1g_vs_plain``);
 3. exact captions on learned weights: the port's ``predict_prompt`` on the
    committed tiny captioner (greedy and ``--q8``, beam ``--isbeam`` and
    ``--isbeam --q8``, each beam also with ``--bf16_softmax``, and MAGIC
@@ -174,8 +179,9 @@ which must pass:
     similarities within ``KNN_TOL`` of float64 numpy's top 5, the sets equal
     wherever the 5th and 6th similarities differ by more than ``KNN_TOL``,
     records/s;
-18. the Mistral-7B + LoRA multilingual captioner (no kernel of its own:
-    cuBLAS and ``torch._int_mm``): the committed tiny Mistral captioner
+18. the Mistral-7B + LoRA multilingual captioner (cuBLAS and
+    ``torch._int_mm``; over the int8 cache each layer's step attention is
+    K1g): the committed tiny Mistral captioner
     (``testdata/tiny_mistral``, SentencePiece tokenizer) through the port's
     ``predict_multilingual`` in fp32, float and ``--q8 --fuse_qkv on``, with
     the en/zh/fr captions the JAX package recorded, and its LoRA train
@@ -185,7 +191,7 @@ which must pass:
     with EOS never met: bf16 with the float cache at B=64, w8a8 with the int8
     cache at B=64 and at B=256 unfused and fused (``--fuse_qkv auto``'s
     choice there; Q1 and Q2 launches checked, 7 L + 1 of each in the prefill
-    and each step unfused, 4 L + 1 fused); ``tests/test_mistral.py``'s int8 bounds at its own config
+    and each step unfused, 4 L + 1 fused, and K1g's, L a step); ``tests/test_mistral.py``'s int8 bounds at its own config
     (``MISTRAL_INT8_TOL``); teacher-forced on the bf16 decode's tokens, the
     bf16 steps against the bf16 ``mistral_forward`` within
     ``MISTRAL_FLOOR_FACTOR`` times the bf16 forward's distance from its fp32
@@ -232,7 +238,7 @@ which must pass:
     f, g and vocabulary gather) giving the unsharded decode's tokens and
     lengths; the group destroyed.
 
-The last lines are the ``kernels`` JSON line (K1-K9, Q1, Q2), the card's
+The last lines are the ``kernels`` JSON line (K1-K9, Q1, Q2, K1g), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -459,7 +465,7 @@ def k1_bound(B, H, d, index, act_bytes):
 def phase_build():
     from zs_aac_tpu_torch.utils import cuda_build
 
-    names = ["decode_attn", "logmel", "window_attn", "swin_train", "quant"]
+    names = ["decode_attn", "logmel", "window_attn", "swin_train", "quant", "decode_attn_gqa"]
     report = cuda_build.build(names)
     for name in names:
         if name in report:
@@ -667,6 +673,117 @@ def phase_quant_vs_plain():
                   f"{us['bound_ms']:.2f} us, {us['bound_ms'] / us['graph_ms']:.1%} of it), "
                   f"plain {us['plain_ms']:.2f} us", flush=True)
     return stats
+
+
+# K1g (csrc/decode_attn_gqa.cu) against its plain version: the committed
+# row and its scales bitwise (the same IEEE operations; the k row is the
+# quantized rotated k);
+# o in fp32 within K1G_TOL_F32 of max|o| (summation order), in bf16 within one
+# bf16 step at the largest |o| (k1_tol's bf16 rule: both round o once).
+K1G_TOL_F32 = 1e-5
+# Mistral-7B's cell: 32 q / 8 kv heads of 128, B = 2,048, prompt 13, so the
+# 59 steps run at indices 13..71
+K1G_CELL = {"B": 2048, "KV": 8, "rep": 4, "d": 128, "indices": (13, 71)}
+
+
+def k1g_inputs(B, KV, rep, d, T, index, dtype, g):
+    """Pre-RoPE q [B, H d], k and v [B, KV d], the step's tables and a random
+    int8 cache [B KV, T, d] with fp32 scales."""
+    import torch
+
+    from zs_aac_tpu_torch.models.mistral import _rope_tables
+
+    H = KV * rep
+    return [torch.randn(B, H * d, generator=g, device="cuda").to(dtype),
+            (torch.randn(B, KV * d, generator=g, device="cuda") * 2).to(dtype),
+            torch.randn(B, KV * d, generator=g, device="cuda").to(dtype),
+            _rope_tables(d, torch.full((1,), index, device="cuda"), 10000.0, dtype),
+            torch.randint(-127, 128, (B * KV, T, d), generator=g, device="cuda",
+                          dtype=torch.int8),
+            torch.randint(-127, 128, (B * KV, T, d), generator=g, device="cuda",
+                          dtype=torch.int8),
+            torch.rand(B * KV, T, generator=g, device="cuda") * 0.05 + 1e-3,
+            torch.rand(B * KV, T, generator=g, device="cuda") * 0.05 + 1e-3]
+
+
+def k1g_bound(B, H, KV, d, index, lo, act_bytes):
+    """Least time of one K1g call (ms, bytes), ``benchmark/costs/k1g.py``'s
+    bound: q, k, v read and o written in the activation dtype, the cos and
+    sin rows read, window rows lo..index-1 of int8 K, V and their fp32 scales
+    read, row ``index`` written; 4 d flops a row a query head."""
+    from benchmark.costs.k1g import bound
+
+    seconds, nbytes = bound(B, H, KV, d, index, lo, act_bytes)
+    return seconds * 1e3, nbytes
+
+
+def phase_k1g_vs_plain():
+    """K1g against ``decode_attn_gqa_q8_plain`` at Mistral-7B's heads (d =
+    128, 8 kv heads of 4 query heads): the benchmark cell's B = 2,048 at its
+    first and last step (windows of 14 and 72 rows) in bf16, B = 256 in fp32,
+    a window of 200 rows past lo = 0 (two chunks), one of a single row, and
+    the tiny configs' heads (d = 8, 2 query heads a kv head). Then timed at
+    the cell's two indices over two input sets (each a 153 MB cache, three
+    times the L2): launched from Python, in a CUDA graph of the same 20
+    launches, the plain version, and the byte bound. Returns the kernels
+    line's numbers (each the mean of the two indices)."""
+    import torch
+
+    from zs_aac_tpu_torch.ops.decode_attn_gqa import (decode_attn_gqa_plan, decode_attn_gqa_q8,
+                                                      decode_attn_gqa_q8_plain)
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    bf, f32 = torch.bfloat16, torch.float32
+    c = K1G_CELL
+    cases = [(c["B"], 8, 4, 128, 73, i, 0, bf) for i in c["indices"]] + [
+        (256, 8, 4, 128, 73, 40, 0, f32), (64, 8, 4, 128, 260, 250, 51, bf),
+        (64, 8, 4, 128, 260, 250, 250, bf), (16, 2, 2, 8, 40, 33, 0, f32),
+        (16, 2, 2, 8, 40, 33, 0, bf)]
+    worst = 0.0
+    with torch.no_grad():
+        for B, KV, rep, d, T, index, lo, dt in cases:
+            name = str(dt).split(".")[1]
+            a = k1g_inputs(B, KV, rep, d, T, index, dt, g)
+            b = [x.clone() for x in a[4:]]
+            o = decode_attn_gqa_q8(*a, index, lo)
+            o_ref = decode_attn_gqa_q8_plain(*a[:4], *b, index, lo)
+            torch.cuda.synchronize()
+            err = (o.float() - o_ref.float()).abs().max().item()
+            tol = (K1G_TOL_F32 * o_ref.float().abs().max().item() if dt == f32
+                   else k1_tol(name, o_ref))
+            same = all(torch.equal(x, y) for x, y in zip(a[4:], b))
+            print(f"[k1g] {name} B={B} KV={KV} rep={rep} d={d} window {lo}..{index} plan "
+                  f"{decode_attn_gqa_plan(dt, d, rep, index - lo + 1)}: max|o-o_plain|="
+                  f"{err:.3g} (tol {tol:.3g}), cache rows and scales equal {same}", flush=True)
+            check(err <= tol, f"K1g disagrees with its plain version ({err} > {tol})")
+            check(same, "K1g's committed row or scales differ from the plain version's")
+            if B == c["B"]:
+                worst = max(worst, err)
+            del a, b, o, o_ref
+        torch.cuda.empty_cache()
+        B, KV, rep, d = c["B"], c["KV"], c["rep"], c["d"]
+        stats = {"ms": [], "graph_ms": [], "plain_ms": [], "bound_ms": []}
+        for index in c["indices"]:
+            bufs = [k1g_inputs(B, KV, rep, d, 73, index, bf, g) for _ in range(2)]
+            call = lambda r: decode_attn_gqa_q8(*bufs[r % 2], index, 0)
+            plain = lambda r: decode_attn_gqa_q8_plain(*bufs[r % 2], index, 0)
+            call(0)
+            plain(0)
+            stats["ms"].append(timed_ms(call, 20))
+            stats["graph_ms"].append(graph_ms(call, 20))
+            stats["plain_ms"].append(timed_ms(plain, 4))
+            stats["bound_ms"].append(k1g_bound(B, KV * rep, KV, d, index, 0, 2)[0])
+            us = {k: v[-1] * 1e3 for k, v in stats.items()}
+            print(f"[k1g] B={B} bf16 index {index} ({index + 1} rows): {us['ms']:.2f} us "
+                  f"launched from Python, {us['graph_ms']:.2f} us in a CUDA graph (bound "
+                  f"{us['bound_ms']:.2f} us, {us['bound_ms'] / us['graph_ms']:.1%} of it; "
+                  f"{us['bound_ms'] / us['ms']:.1%} launched), plain {us['plain_ms']:.2f} us",
+                  flush=True)
+            del bufs
+        torch.cuda.empty_cache()
+    print(f"[k1g] phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"max_abs_err": worst, **{k: statistics.mean(v) for k, v in stats.items()}}
 
 
 # MAGIC on the tiny captioner: the committed tiny CLAP checkpoint; width 5
@@ -3150,6 +3267,7 @@ def phase_mistral():
     from zs_aac_tpu_torch.models.mistral import (MistralConfig, init_lora, init_mistral,
                                                  mistral_embed, mistral_forward,
                                                  quantize_mistral_int8)
+    from zs_aac_tpu_torch.ops.decode_attn_gqa import decode_attn_gqa_q8
     from zs_aac_tpu_torch.ops.quant import int8_rescale, quant_act
 
     t_phase = time.perf_counter()
@@ -3268,13 +3386,19 @@ def phase_mistral():
         # 7 a layer unfused, 4 fused, and lm_head's, in the prefill and each
         # of the n - 1 steps
         per_step = {"unfused": 7 * cfg.n_layers + 1, "fused": 4 * cfg.n_layers + 1}
+        # K1g: one launch a layer in each of the n - 1 steps, none in the prefill
+        k1g_launches = cfg.n_layers * (n - 1)
 
         def counted(name, *args):
             quant_act.launches = int8_rescale.launches = 0
+            decode_attn_gqa_q8.launches = 0
             out = _mistral_decode(*args)
             counts = (quant_act.launches, int8_rescale.launches)
             check(counts == (per_step[name] * n,) * 2,
                   f"{name} w8a8 decode: Q1/Q2 launches {counts}, expected {per_step[name]} x {n}")
+            check(decode_attn_gqa_q8.launches == k1g_launches,
+                  f"{name} w8a8 decode: K1g launches {decode_attn_gqa_q8.launches}, expected "
+                  f"{cfg.n_layers} x {n - 1}")
             return out
 
         toks, lens, wall, dev_ms = counted("unfused", w8a8, cfg, emb64, lora, True)
@@ -3282,6 +3406,8 @@ def phase_mistral():
         print(f"[mistral] Q1/Q2 launches a w8a8 decode: unfused {per_step['unfused']} x {n} = "
               f"{per_step['unfused'] * n} each (B=64 and 256), fused {per_step['fused']} x {n} = "
               f"{per_step['fused'] * n} each (B=256)", flush=True)
+        print(f"[mistral] K1g launches a w8a8 + int8 cache decode: {cfg.n_layers} x {n - 1} "
+              f"steps = {k1g_launches} (B=64 and 256, unfused and fused)", flush=True)
         # B=256: unfused then fused (what --fuse_qkv auto picks there), twice each
         fused = None
         runs = {"unfused": [], "fused": []}
@@ -3317,7 +3443,7 @@ def phase_mistral():
     print(f"[mistral] phase 18 took {time.perf_counter() - t_phase:.1f} s (fixture and the "
           f"JAX tests' bounds {t_fixture:.1f} s, 7B serving {t_serve:.1f} s, the LoRA step "
           f"{time.perf_counter() - t_phase - t_fixture - t_serve:.1f} s)", flush=True)
-    return {name: per_step[name] * n for name in per_step}
+    return {name: per_step[name] * n for name in per_step}, k1g_launches
 
 
 def _lora_grads(params, ccfg, batch, dtype):
@@ -3941,6 +4067,7 @@ def main():
     phase_build()
     worst, k1b_shares = phase_k1_vs_plain()
     quant = phase_quant_vs_plain()
+    k1g = phase_k1g_vs_plain()
     phase_fixture_captions()
     launches, quant_launches, k1 = phase_full_width()
     k2_err = phase_k2_vs_plain()
@@ -3956,7 +4083,7 @@ def main():
     phase_magic_full_width()
     cnn_launches = phase_cnn_full_width()
     chain_launches = phase_caption_train()
-    mistral_quant = phase_mistral()
+    mistral_quant, k1g_launches = phase_mistral()
     tower_launches = phase_text_towers()
     phase_parallel()
 
@@ -4021,6 +4148,11 @@ def main():
                         "launches": quant_launches[key],
                         "mistral_launches": mistral_quant, "max_abs_err": 0.0,
                         **quant[key], "bound_by": "bytes", "library_ms": None})
+    kernels.append({"name": "decode_attn_gqa_q8", "route": "cuda",
+                    "source": "zs_aac_tpu_torch/csrc/decode_attn_gqa.cu",
+                    "replaces": None,      # no TPU kernel: XLA fused Mistral's int8 step there
+                    "mistral_launches": k1g_launches, **k1g, "bound_by": "bytes",
+                    "library_ms": None})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

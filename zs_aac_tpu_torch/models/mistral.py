@@ -34,8 +34,10 @@ Operation order follows the JAX functions: RMSNorm casts to the input dtype
 before ``* w``; the full-sequence scores are in the activation dtype with
 the softmax in fp32; the float step's scores are cast to fp32 before the
 ``/ sqrt(d)``; the int8 step's two products accumulate and stay in fp32.
-Every division by a constant is by a tensor (``ops/quant.py``). No Pallas
-kernel is on this path: the matmuls are cuBLAS's (and ``torch._int_mm``).
+Every division by a constant is by a tensor (``ops/quant.py``). The matmuls
+are cuBLAS's (and ``torch._int_mm``); the int8 step's attention is
+``ops/decode_attn_gqa.py`` (its plain version on the CPU, kernel K1g on
+CUDA).
 
 Tensor parallelism (Megatron's, float weights and the float cache):
 ``mistral_embed``, ``mistral_forward``, ``init_mistral_cache``,
@@ -60,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from zs_aac_tpu_torch.models.gpt2 import _int8_dot
+from zs_aac_tpu_torch.ops.decode_attn_gqa import decode_attn_gqa_q8, rope_half
 from zs_aac_tpu_torch.ops.quant import div, quantize_vec
 from zs_aac_tpu_torch.parallel.mesh import tp_copy, tp_gather, tp_reduce
 from zs_aac_tpu_torch.parallel.tp import embed_lookup
@@ -120,14 +123,6 @@ def _rope_tables(d: int, positions: torch.Tensor, theta: float, dtype):
     ang = positions[:, None].float() * _inv_freq(d, theta, positions.device)[None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
     return torch.cat([cos, cos], dim=-1).to(dtype), torch.cat([sin, sin], dim=-1).to(dtype)
-
-
-def _rope(x, tables):
-    """x: [B, H, L, d]; rotate-half RoPE (HF Llama/Mistral convention)."""
-    cos, sin = tables
-    d = x.shape[-1]
-    rot = torch.cat([-x[..., d // 2:], x[..., :d // 2]], dim=-1)
-    return x * cos + rot * sin
 
 
 def _base_matmul(x, w):
@@ -299,8 +294,8 @@ def _attention(p, cfg: MistralConfig, x, *, bias, tables, lora, scale, tp=None):
     B, L, _ = x.shape
     H, KV, d = _local(cfg.n_heads, tp), _local(cfg.n_kv_heads, tp), cfg.head_dim
     q, k, v = _qkv_matmul(p, cfg, x, lora, scale, tp)
-    q = _rope(q.reshape(B, L, H, d).transpose(1, 2), tables)
-    k = _rope(k.reshape(B, L, KV, d).transpose(1, 2), tables)
+    q = rope_half(q.reshape(B, L, H, d).transpose(1, 2), tables)
+    k = rope_half(k.reshape(B, L, KV, d).transpose(1, 2), tables)
     v = v.reshape(B, L, KV, d).transpose(1, 2)
     rep = H // KV
     kr = k.repeat_interleave(rep, dim=1)
@@ -430,11 +425,13 @@ def mistral_step(params, cfg: MistralConfig, x_embed, cache, index: int, lora=No
     ``x_embed``: [B, D]. Writes its K/V into row ``index`` of the cache in
     place; GQA is grouped (each kv head serves its ``H / KV`` query heads
     without a copy of the cache). Returns (logits [B, vocab], cache).
+    Over the int8 cache each layer's attention, RoPE and k/v commit included,
+    is ``ops/decode_attn_gqa.py::decode_attn_gqa_q8`` (kernel K1g on CUDA).
     Spans: ``layer.attn`` from RoPE to the attention's output (before
     ``wo``), ``decode.logits`` over ``_head``."""
     B, D = x_embed.shape
     H, KV, d = _local(cfg.n_heads, tp), _local(cfg.n_kv_heads, tp), cfg.head_dim
-    rep, bg = H // KV, B * KV
+    rep = H // KV
     lo, hi = max(0, index - cfg.sliding_window + 1), index + 1
     x = x_embed[:, None]
     tables = _rope_tables(d, torch.full((1,), index, device=x.device), cfg.rope_theta, x.dtype)
@@ -447,26 +444,12 @@ def mistral_step(params, cfg: MistralConfig, x_embed, cache, index: int, lora=No
         h = _rms_norm(x, p["ln1"], cfg.rms_norm_eps)
         q, k, v = _qkv_matmul(a, cfg, h, ll, scale, tp)
         with annotate("layer.attn"):
-            q = _rope(q.reshape(B, 1, H, d).transpose(1, 2), tables)     # [B, H, 1, d]
-            k = _rope(k.reshape(B, 1, KV, d).transpose(1, 2), tables)    # [B, KV, 1, d]
             if q8:
-                ck, cv, sk, sv = cache[i]
-                qk, s_k = quantize_vec(k[:, :, 0].float())
-                qv, s_v = quantize_vec(v.reshape(B, KV, d).float())
-                ck[:, index] = qk.reshape(bg, d)
-                cv[:, index] = qv.reshape(bg, d)
-                sk[:, index] = s_k.reshape(bg)
-                sv[:, index] = s_v.reshape(bg)
-                # int8 x activation products accumulate and stay in fp32 (the
-                # JAX step's preferred_element_type), scales folded in
-                qg = q[:, :, 0].reshape(bg, rep, d).float()
-                att = torch.bmm(qg, ck[:, lo:hi].float().transpose(1, 2))       # [BG, rep, n]
-                att = att * div(sk[:, None, lo:hi], sqrt_d)
-                att = torch.softmax(att, dim=-1)
-                att = (att * sv[:, None, lo:hi]).to(x.dtype)
-                o = torch.bmm(att.float(), cv[:, lo:hi].float())               # [BG, rep, d]
-                o = o.to(x.dtype).reshape(B, 1, H * d)
+                o = decode_attn_gqa_q8(q[:, 0], k[:, 0], v[:, 0], tables, *cache[i], index,
+                                       lo).reshape(B, 1, H * d)
             else:
+                q = rope_half(q.reshape(B, 1, H, d).transpose(1, 2), tables)     # [B, H, 1, d]
+                k = rope_half(k.reshape(B, 1, KV, d).transpose(1, 2), tables)    # [B, KV, 1, d]
                 ck, cv = cache["k"][i], cache["v"][i]                            # [B, KV, T, d]
                 ck[:, :, index] = k[:, :, 0].to(ck.dtype)
                 cv[:, :, index] = v.reshape(B, KV, d).to(cv.dtype)
